@@ -3,20 +3,34 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
-  1. require CUDA, print the card's name and power limit, build the
-     blend kernel from d2dgs_torch/csrc with nvcc;
-  2. hold the blend kernel against its plain PyTorch version on the card:
-     a 48x64 scene of 160 splats, the same scene all opaque (early
-     termination), and the full-width scene of phase 3; check the tiled
-     CUDA render of the small scene against the dense oracle;
+  1. require CUDA, print the card's name and power limit, build both
+     blend kernels from d2dgs_torch/csrc with nvcc (one nvcc per source,
+     started together);
+  2. hold the forward kernel (K1) against its plain PyTorch version on
+     the card: a 48x64 scene of 160 splats, the same scene all opaque
+     (early termination), and the full-width scene of phase 3; check the
+     tiled CUDA render of the small scene against the dense oracle;
+  2b. hold the backward kernel (K2) against its plain version (autograd
+     through the plain blend) on the same three scenes, with a seeded
+     cotangent on the state rows the maps read; on the full-width view
+     the cotangent is non-zero on the 16 heaviest tiles and 48 seeded
+     ones, and the plain version runs on those tiles alone;
   3. the served path at full width: 83,252 Gaussians from
      CONVERGENCE_r05_dist.npz at capacity 100,000, SH degree 3, 1024
      control nodes with the 8x256 deform MLP and its timenet, and four
      800x800 requests at t = 0, 0.25, 0.5, 0.75, each a node warp plus a
      render; checks finite outputs, coverage and one kernel launch per
      request, then times the kernel, its plain version and each render
-     with CUDA events.
-The line before the last is the JSON record of the kernels, then the
+     with CUDA events;
+  4. the training path at full width: the same scene with Adam state and
+     densify statistics, trained for 10 main-stage steps at 800x800 and
+     t = 0.5 towards the scene's own render, from a copy whose colours and
+     opacities are perturbed from a seed, with every loss term on and the
+     JAX trainer's LRs at iterations 8001-8010; checks finite loss, moments and
+     parameters, one K1 and one K2 launch per step, the densify counts
+     and a falling L1, then times the step and its stages, K1 in training
+     mode, K2 and K2's plain version.
+The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
 from __future__ import annotations
@@ -25,6 +39,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,6 +57,11 @@ PEAK_BYTES_S = 3.35e12
 # distortion, median).
 OPS_EVAL = 46
 OPS_BLEND = 39
+# csrc/blend_bwd.cu: every pair up to a pixel's last blended one repeats
+# the response (OPS_EVAL); every blended pair adds the pre-state rebuild,
+# the w/m/depth and alpha cotangents, the response adjoint and the
+# running sums (143), and its 18 gradients join the cross-pixel sum (18).
+OPS_BWD_BLEND = 143 + 18
 
 # kernel-vs-plain tolerances per state row (rtol, atol): colour and alpha
 # as the image, the auxiliary rows as the allmap in the JAX package's
@@ -49,6 +69,9 @@ OPS_BLEND = 39
 TIGHT = (1e-5, 1e-5)
 AUX = (1e-4, 1e-5)
 MAX_FLIP_SHARE = 1e-4     # pixels whose termination/median branch flips
+# K2 vs its plain version, each feature column max-normalised: the
+# tolerance of the JAX package's kernel gradients (tests/test_pallas_blend.py)
+GRAD = (2e-4, 2e-5)
 
 
 def log(msg):
@@ -142,7 +165,7 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     n_pix = flip.numel()
     return {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
             "pixels": n_pix, "bad_outside_flips": int(bad.sum()),
-            "max_abs_err": max(row_err.values())}
+            "max_abs_err": max(row_err.values()), "flip_mask": flip}
 
 
 def check_kernel(label, feats_sorted, binning, gx, chunk):
@@ -161,9 +184,101 @@ def check_kernel(label, feats_sorted, binning, gx, chunk):
         + json.dumps({str(k): v for k, v in res['row_max_abs_err'].items()}))
     if res["bad_outside_flips"] or \
             res["flipped"] > MAX_FLIP_SHARE * res["pixels"]:
+        summary = {k: v for k, v in res.items() if k != "flip_mask"}
         raise AssertionError(f"blend kernel disagrees with its plain "
-                             f"version on {label}: {res}")
+                             f"version on {label}: {summary}")
     return sk, res
+
+
+def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
+    """A cotangent from a seed on the state rows that state_to_maps reads
+    (zero on K2's dead rows)."""
+    from d2dgs_torch.ops.cuda.blend import DEAD_ROWS
+    gen = torch.Generator(device=state.device).manual_seed(seed)
+    g = torch.randn(state.shape, generator=gen, device=state.device)
+    g[:, list(DEAD_ROWS)] = 0.0
+    return g
+
+
+def check_backward(label, feats_sorted, binning, gx, chunk, flip,
+                   tiles=None):
+    """K2 vs its plain version on one scene: a seeded cotangent on the
+    map rows, zero at the pixels whose termination or median flipped
+    between K1 and the plain forward (``flip`` [T, PIX]) and, with
+    ``tiles``, outside those tiles; all 18 feature gradients compared
+    max-normalised per column."""
+    from d2dgs_torch.ops.cuda.blend import (NREC, blend_bwd, blend_fwd,
+                                            blend_tiles_plain_vjp)
+    from d2dgs_torch.ops.tiled_raster import PIX
+    args = (feats_sorted, binning.pair_rank, binning.tile_start,
+            binning.tile_count, gx)
+    num_tiles = binning.tile_start.shape[0]
+    records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
+                          device=feats_sorted.device)
+    state = blend_fwd(*args, records=records)
+    g = map_cotangent(state, seed=4)
+    g = torch.where(flip[:, None, :], 0.0, g)
+    if tiles is not None:
+        keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
+        keep[tiles] = True
+        g = torch.where(keep[:, None, None], g, 0.0)
+    dk = blend_bwd(*args, state, records, g)
+    torch.cuda.synchronize()
+    dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
+    torch.cuda.synchronize()
+    scale = dp.abs().amax(dim=0) + 1e-30
+    err = (dk - dp).abs() / scale
+    rtol, atol = GRAD
+    bad = int((err > atol + rtol * dp.abs() / scale).sum())
+    n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
+    n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
+    max_err = float(err.max())
+    log(f"[phase 2b] {label}: flipped pixels excluded {n_flip}/{n_pix}, "
+        f"max normalised |err| {max_err:.3g} (per column "
+        + json.dumps([round(float(e), 9) for e in err.amax(dim=0)])
+        + f"), entries outside rtol {rtol} atol {atol}: {bad}")
+    if bad or n_flip > MAX_FLIP_SHARE * n_pix or \
+            not bool(torch.isfinite(dk).all()):
+        raise AssertionError(f"backward kernel disagrees with its plain "
+                             f"version on {label}")
+    return {"max_norm_err": max_err, "flipped": n_flip, "pixels": n_pix,
+            "max_abs_err": float((dk - dp).abs().max())}
+
+
+def heavy_and_random_tiles(tile_count: torch.Tensor, n_heavy: int,
+                           n_random: int, seed: int) -> torch.Tensor:
+    """The ``n_heavy`` tiles with the most pairs and ``n_random`` others
+    drawn from a seed, sorted."""
+    heavy = torch.topk(tile_count, n_heavy).indices
+    rest = torch.ones_like(tile_count, dtype=torch.bool)
+    rest[heavy] = False
+    others = torch.nonzero(rest).flatten()
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    pick = torch.randperm(others.numel(), generator=gen)[:n_random]
+    return torch.sort(torch.cat([heavy, others[pick.to(others.device)]]))\
+        .values
+
+
+def plain_vjp_all_tiles_ms(feats_sorted, binning, gx, g, chunk,
+                           batch: int = 64) -> float:
+    """CUDA-event time of K2's plain version over every tile, run in
+    batches of ``batch`` tiles of similar pair counts (the whole view at
+    once would save every chunk's intermediates for all tiles)."""
+    from d2dgs_torch.ops.cuda.blend import blend_tiles_plain_vjp
+    order = torch.argsort(binning.tile_count, descending=True)
+    total = 0.0
+    for b0 in range(0, order.numel(), batch):
+        tiles = order[b0:b0 + batch]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        blend_tiles_plain_vjp(feats_sorted, binning.pair_rank,
+                              binning.tile_start, binning.tile_count, gx, g,
+                              tiles=tiles, chunk=chunk)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total
 
 
 def full_scene(dev):
@@ -196,6 +311,129 @@ def full_scene(dev):
     return gauss, nodes, DeformConfig(deform_type="node", node=node_cfg)
 
 
+def training_state(gauss, nodes, seed: int):
+    """The phase-3 scene as a TrainState: zero Adam moments, empty densify
+    statistics (the parts init_train_state adds to a point cloud)."""
+    from d2dgs_torch.models.densify import init_stats
+    from d2dgs_torch.train.optim import adam_init
+    from d2dgs_torch.train.trainer import (TrainState, gauss_trainable,
+                                           mlp_trainable, node_trainable)
+    return TrainState(
+        gauss=gauss, gauss_opt=adam_init(gauss_trainable(gauss)),
+        gauss_stats=init_stats(gauss.capacity, gauss.xyz.device),
+        nodes=nodes, node_opt=adam_init(node_trainable(nodes)),
+        mlp_opt=adam_init(mlp_trainable(nodes)),
+        generator=torch.Generator().manual_seed(seed))
+
+
+def check_trained(state, metrics, step):
+    """Finite loss, moments and parameters after one step."""
+    from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
+                                           node_trainable)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"step {step}: loss {metrics['loss']}")
+    for name, params, opt in (
+            ("gauss", gauss_trainable(state.gauss), state.gauss_opt),
+            ("mlp", mlp_trainable(state.nodes), state.mlp_opt),
+            ("node", node_trainable(state.nodes), state.node_opt)):
+        for k, p in params.items():
+            # mu = 0.9 mu + 0.1 g: a non-finite gradient shows in mu and nu
+            for what, t in (("param", p), ("mu", opt.mu[k]),
+                            ("nu", opt.nu[k])):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"step {step}: non-finite {what} "
+                                         f"of {name}.{k}")
+
+
+def train_stage_ms(state, cam, gt, cfg, sched, reps: int = 3) -> dict:
+    """CUDA-event time of each stage of one training step, run alone:
+    warp forward, render forward, the losses, the backward, Adam."""
+    from d2dgs_torch.models import regularizers as R
+    from d2dgs_torch.models.deform import deform_gaussians
+    from d2dgs_torch.ops.ssim import l1, ssim
+    from d2dgs_torch.render.renderer import render
+    from d2dgs_torch.train.optim import adam_init, adam_update
+    from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
+                                           node_trainable, photometric_loss)
+    g, nodes = state.gauss, state.nodes
+    dev = g.xyz.device
+    bg = torch.zeros(3, device=dev)
+    probe = torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
+    draws = R.arap_draws(torch.Generator().manual_seed(7),
+                         nodes.nodes.shape[0])
+
+    def warp():
+        return deform_gaussians(nodes, cfg.deform_cfg, g.xyz, cam.time,
+                                feature=g.feature, motion_mask=g.motion_mask)
+
+    d = warp()
+
+    def fwd():
+        return render(cam, g, bg, d_xyz=d["d_xyz"],
+                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+                      screen_probe=probe, cfg=cfg.raster)
+
+    out = fwd()
+
+    def losses():
+        ll1 = l1(out.image, gt)
+        loss = (1.0 - cfg.lambda_dssim) * ll1 + cfg.lambda_dssim * (
+            1.0 - ssim(out.image, gt))
+        loss = loss + sched["lambda_normal"] * torch.mean(
+            1.0 - torch.sum(out.rend_normal * out.surf_normal, dim=-1))
+        loss = loss + sched["lambda_dist"] * torch.mean(out.rend_dist)
+        return loss + sched["lambda_arap"] * R.arap_loss(
+            nodes, cfg.node_cfg, draws)
+
+    groups = [gauss_trainable(g), mlp_trainable(nodes), node_trainable(nodes)]
+    inputs = [p for grp in groups for p in grp.values()] + [probe]
+    back = []
+    for _ in range(reps + 1):
+        loss = photometric_loss(g, nodes, cam, gt, probe, cfg, sched, bg)[0] \
+            + sched["lambda_arap"] * R.arap_loss(nodes, cfg.node_cfg, draws)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(loss, inputs, allow_unused=True)
+        end.record()
+        torch.cuda.synchronize()
+        back.append(start.elapsed_time(end))
+    # Adam on copies, so the timing does not move the model
+    copies = [{k: p.detach().clone() for k, p in grp.items()}
+              for grp in groups]
+    opts = [adam_init(c) for c in copies]
+    grads = [{k: torch.randn_like(p) for k, p in c.items()} for c in copies]
+
+    def adam():
+        for gr, o, c in zip(grads, opts, copies):
+            adam_update(gr, o, c, 1e-3)
+
+    return {"warp_fwd": cuda_ms(warp, reps), "render_fwd": cuda_ms(fwd, reps),
+            "losses": cuda_ms(losses, reps),
+            "backward": float(np.mean(back[1:])),
+            "adam": cuda_ms(adam, reps)}
+
+
+def k2_bound(fs, binning, state, records, n_reduce: int):
+    """Least time of K2 on these inputs: float32 operations of the pairs
+    each pixel walks and blends, against bytes read and written once plus
+    the atomics issued."""
+    from d2dgs_torch.ops.cuda.blend import REC_LAST
+    from d2dgs_torch.ops.tiled_raster import NFEAT, PIX, ROW_N_BLEND
+    n_eval = float((records[:, REC_LAST].to(torch.float64) + 1.0).sum())
+    n_blend = float(state[:, ROW_N_BLEND].to(torch.float64).sum())
+    ops = OPS_EVAL * n_eval + OPS_BWD_BLEND * n_blend
+    num_tiles = state.shape[0]
+    nbytes = (2 * fs.numel() * 4 + binning.pair_rank.numel() * 4
+              + num_tiles * 4 + num_tiles * PIX * 4 * (3 + 2 + 11)
+              + n_reduce * NFEAT * 4)
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return {"n_eval": n_eval, "n_blend": n_blend, "ops": ops,
+            "bytes": nbytes, "n_reduce": n_reduce, "t_ops": t_ops,
+            "t_bytes": t_bytes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -208,13 +446,16 @@ def main() -> int:
     from d2dgs_torch.models.gaussians import apply_deform
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
-    from d2dgs_torch.ops.cuda.blend import SOURCE, blend_fwd
+    from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
+                                            blend_bwd, blend_fwd)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
-    from d2dgs_torch.ops.tiled_raster import (ROW_N_BLEND, ROW_N_EVAL,
+    from d2dgs_torch.ops.tiled_raster import (PIX, ROW_N_BLEND, ROW_N_EVAL,
                                               blend_tiles_plain,
                                               pack_features, rasterize_tiled)
     from d2dgs_torch.render.renderer import render
+    from d2dgs_torch.train.config import TrainConfig
+    from d2dgs_torch.train.trainer import main_stage_step, make_schedules
     from d2dgs_torch.utils.sh import sh_to_rgb
 
     t_start = time.time()
@@ -223,16 +464,20 @@ def main() -> int:
     log(f"[phase 1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.time()
-    lib, report = build.build(SOURCE)
-    log(f"[phase 1] built {lib.relative_to(ROOT)} in {time.time() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[phase 1] ptxas: {line.strip()}")
+    with ThreadPoolExecutor(2) as pool:      # one nvcc per source at once
+        built = list(pool.map(build.build, (SOURCE, SOURCE_BWD)))
+    for lib, report in built:
+        log(f"[phase 1] built {lib.relative_to(ROOT)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[phase 1] ptxas: {line.strip()}")
+    log(f"[phase 1] both kernels built in {time.time() - t0:.1f} s")
     cfg = RasterConfig()
 
-    # ---- phase 2: kernel vs plain on small scenes, tiled vs dense ----
+    # ---- phase 2 and 2b: kernels vs plain on small scenes ----
     H, W = 48, 64
     cam_s = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=H, W=W, device=dev)
+    bwd_checks = {}
     for opaque in (False, True):
         arrs = [torch.as_tensor(a, device=dev) for a in small_scene(opaque)]
         means, scales, quats, opac, colors = arrs
@@ -240,7 +485,9 @@ def main() -> int:
         fs, binning, gx = splat_inputs(means, scales, quats, opac, colors,
                                        alive, cam_s, cfg)
         label = "48x64 opaque" if opaque else "48x64"
-        check_kernel(label, fs, binning, gx, cfg.chunk)
+        _, res = check_kernel(label, fs, binning, gx, cfg.chunk)
+        bwd_checks[label] = check_backward(label, fs, binning, gx, cfg.chunk,
+                                           res["flip_mask"])
         bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
         ct, at, *_ = rasterize_tiled(means, scales, quats, opac, colors,
                                      cam_s, bg, cfg=cfg)
@@ -317,9 +564,14 @@ def main() -> int:
         inputs = [view_inputs(c) for c in cams]
         fs0, bin0, gx0 = inputs[0]
         state0, res0 = check_kernel("800x800 t=0", fs0, bin0, gx0, cfg.chunk)
+        tiles0 = heavy_and_random_tiles(bin0.tile_count, 16, 48, seed=8)
+        bwd_checks["800x800 t=0"] = res_k2 = check_backward(
+            "800x800 t=0, 16 heaviest + 48 seeded tiles", fs0, bin0, gx0,
+            cfg.chunk, res0["flip_mask"], tiles=tiles0)
+        del res0["flip_mask"]
 
         # ---- phase 3: the served path, counted ----
-        blend_fwd.launches = 0
+        blend_fwd.launches = blend_bwd.launches = 0
         outs = []
         for i, cam in enumerate(cams):
             out = serve(cam)
@@ -328,7 +580,10 @@ def main() -> int:
                 raise AssertionError(f"request {i}: blend kernel launches "
                                      f"{blend_fwd.launches}, expected {i + 1}")
             outs.append(out)
-        launches = blend_fwd.launches
+        serve_launches = {"blend_fwd": blend_fwd.launches,
+                          "blend_bwd": blend_bwd.launches}
+        if serve_launches["blend_bwd"]:
+            raise AssertionError("serving launched the backward kernel")
         for t, out in zip(times, outs):
             if out.image.shape != (800, 800, 3) or \
                     out.depth.shape != (800, 800, 1):
@@ -378,17 +633,140 @@ def main() -> int:
         f"{n_blend:.0f} blends, {ops:.4g} float32 ops -> {t_ops:.4f} ms; "
         f"{nbytes} bytes -> {t_bytes:.4f} ms; plain version {plain_ms:.3f} "
         f"ms; mean render {np.mean(render_ms):.3f} ms")
+
+    # ---- phase 4: the training path at full width, counted ----
+    tcfg = TrainConfig(gaussian_capacity=gauss.capacity)
+    if tcfg.node_cfg != deform_cfg.node:
+        raise AssertionError("the scene's nodes are not TrainConfig's")
+    cam_t = cams[2]                                      # t = 0.5
+    with torch.no_grad():
+        d = warp(cam_t)
+        gt = render(cam_t, gauss, bg, d_xyz=d["d_xyz"],
+                    d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+                    cfg=cfg).image
+        gen = torch.Generator(device=dev).manual_seed(6)
+        noise = lambda p, s: s * torch.randn(p.shape, generator=gen,
+                                             device=dev)
+        gauss.features_dc.add_(noise(gauss.features_dc, 0.6))
+        gauss.opacity.add_(noise(gauss.opacity, 1.0))
+    state = training_state(gauss, nodes, seed=5)
+    # the JAX trainer's LRs at the iterations where such a step runs: the
+    # warm-up over and the normal and distortion terms on
+    # (iteration > normal_dist_from_iter, trainer.py:842-853)
+    xyz_sched, deform_sched = make_schedules(tcfg)
+    its = range(tcfg.normal_dist_from_iter + 1,
+                tcfg.normal_dist_from_iter + 11)
+    scheds = [dict(warm=0.0, lambda_normal=0.05, lambda_dist=1000.0,
+                   lambda_arap=0.01, xyz_lr=xyz_sched(it),
+                   deform_lr=deform_sched(it), step=it) for it in its]
+    torch.cuda.reset_peak_memory_stats()
+    blend_fwd.launches = blend_bwd.launches = 0
+    l1s, step_ms = [], []
+    for i, sched in enumerate(scheds):
+        before = (blend_fwd.launches, blend_bwd.launches)
+        denom = state.gauss_stats.denom.clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = main_stage_step(state, cam_t, gt, tcfg, sched)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        if (blend_fwd.launches, blend_bwd.launches) != (before[0] + 1,
+                                                        before[1] + 1):
+            raise AssertionError(f"step {i}: launches K1 "
+                                 f"{blend_fwd.launches - before[0]}, K2 "
+                                 f"{blend_bwd.launches - before[1]}; "
+                                 f"expected one each")
+        check_trained(state, metrics, i)
+        seen = state.gauss_stats.denom - denom
+        if not bool(((seen == 0) | (seen == 1)).all()) or \
+                int(seen.sum()) == 0 or bool(seen[~gauss.alive].any()):
+            raise AssertionError(f"step {i}: densify counts rose by "
+                                 f"{int(seen.sum())} (0/1 per live "
+                                 f"visible Gaussian expected)")
+        l1s.append(float(metrics["loss"]))
+        log(f"[phase 4] step {i}: L1 {l1s[-1]:.6f}, PSNR "
+            f"{float(metrics['psnr']):.3f}, pairs {int(metrics['num_pairs'])}"
+            f", visible {int(seen.sum())}, {step_ms[-1]:.3f} ms")
+    train_launches = {"blend_fwd": blend_fwd.launches,
+                      "blend_bwd": blend_bwd.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not l1s[-1] < l1s[0]:
+        raise AssertionError(f"L1 did not fall: {l1s}")
+
+    # ---- phase 4 timing ----
+    train_stages = train_stage_ms(state, cam_t, gt, tcfg, scheds[-1])
+    with torch.no_grad():
+        fs_t, bin_t, gx_t = view_inputs(cam_t)
+        args_t = (fs_t, bin_t.pair_rank, bin_t.tile_start, bin_t.tile_count,
+                  gx_t)
+        records = torch.empty((bin_t.tile_start.shape[0], NREC, PIX),
+                              dtype=torch.int32, device=dev)
+        state_t = blend_fwd(*args_t, records=records)
+        g_t = map_cotangent(state_t, seed=9)
+        n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
+        blend_bwd(*args_t, state_t, records, g_t, n_reduce=n_reduce)
+        k1_train_ms = cuda_ms(lambda: blend_fwd(*args_t, records=records),
+                              reps=20)
+        k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)
+        k2_ms = cuda_ms(lambda: blend_bwd(*args_t, state_t, records, g_t),
+                        reps=20)
+        k2_plain_ms = plain_vjp_all_tiles_ms(fs_t, bin_t, gx_t, g_t,
+                                             cfg.chunk)
+    train_stages["k2_alone"] = k2_ms
+    bound2 = k2_bound(fs_t, bin_t, state_t, records, int(n_reduce))
+    step_mean = float(np.mean(step_ms[1:]))
+    log(f"[phase 4] steps 2-10: mean {step_mean:.3f} ms per main-stage "
+        f"step at 800x800 ({card}); stages (ms, each timed alone): "
+        + json.dumps(train_stages) + f"; peak memory {peak_gb:.2f} GB")
+    log(f"[phase 4] t=0.5 view: pairs {int(bin_t.num_pairs)}; K1 serving "
+        f"{k1_serve_ms:.4f} ms, training mode {k1_train_ms:.4f} ms; K2 "
+        f"{k2_ms:.4f} ms, plain {k2_plain_ms:.1f} ms (64-tile batches); K2 "
+        f"bound: {bound2['n_eval']:.0f} evaluations, {bound2['n_blend']:.0f}"
+        f" blends, {bound2['ops']:.4g} ops -> {bound2['t_ops']:.4f} ms; "
+        f"{bound2['bytes']} bytes ({bound2['n_reduce']} warp sums) -> "
+        f"{bound2['t_bytes']:.4f} ms")
+    for path, counts in (("serve", serve_launches), ("train",
+                                                     train_launches)):
+        needed = ("blend_fwd",) if path == "serve" else ("blend_fwd",
+                                                         "blend_bwd")
+        for k in needed:
+            if counts[k] == 0:
+                raise AssertionError(f"{k} was not launched on the {path} "
+                                     f"path")
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "blend_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
-        "launches": launches, "max_abs_err": res0["max_abs_err"],
+        "launches": serve_launches["blend_fwd"]
+        + train_launches["blend_fwd"],
+        "launches_by_path": {"serve": serve_launches["blend_fwd"],
+                             "train": train_launches["blend_fwd"]},
+        "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], "ms": kernel_ms[0],
+        "ms_training_mode": k1_train_ms,
         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
-        "render_ms": render_ms, "stages_ms": stages}]}))
+        "render_ms": render_ms, "stages_ms": stages}, {
+        "name": "blend_bwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/blend_bwd.cu",
+        "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
+        "launches": train_launches["blend_bwd"],
+        "launches_by_path": {"serve": serve_launches["blend_bwd"],
+                             "train": train_launches["blend_bwd"]},
+        "max_abs_err": res_k2["max_abs_err"],
+        "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
+        "flipped_pixels": {k: v["flipped"] for k, v in bwd_checks.items()},
+        "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": max(bound2["t_ops"], bound2["t_bytes"]),
+        "bound_by": ("operations" if bound2["t_ops"] >= bound2["t_bytes"]
+                     else "bytes"),
+        "library_ms": None,
+        "step_ms": step_ms, "train_stages_ms": train_stages,
+        "l1": l1s}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

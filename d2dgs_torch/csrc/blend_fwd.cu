@@ -39,6 +39,13 @@
 //
 // Rows 14 and 15 count the pairs each pixel evaluated and blended; they
 // size the operation count of the kernel's bound.
+//
+// Training mode (``records`` not null): per pixel, the position in the
+// tile's pair list of the last blended pair and of the median pair (-1
+// when there is none), [T, NREC, PIX] int32.  The backward kernel
+// (blend_bwd.cu) starts its back-to-front walk from them; the final T,
+// dist1 and dist2 it needs are state rows 0, 2 and 3.  Serving passes
+// null and nothing extra is written.
 
 #include <cuda_runtime.h>
 
@@ -48,6 +55,7 @@ constexpr int TILE = 16;
 constexpr int PIX = TILE * TILE;   // threads per CTA
 constexpr int NFEAT = 18;          // Tmat(9) center(2) normal(3) color(3) opacity(1)
 constexpr int NSTATE = 16;
+constexpr int NREC = 2;            // training records: last, median
 constexpr int BATCH = 256;         // pairs staged per shared-memory batch
 
 constexpr float FILTER_INV_SQUARE = 2.0f;
@@ -65,7 +73,8 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
                  const int* __restrict__ tile_start,   // [T]
                  const int* __restrict__ tile_count,   // [T]
                  int grid_x,
-                 float* __restrict__ state)            // [T, NSTATE, PIX]
+                 float* __restrict__ state,            // [T, NSTATE, PIX]
+                 int* __restrict__ records)            // [T, NREC, PIX] or null
 {
   __shared__ int s_rank[BATCH];
   __shared__ float s_feat[BATCH * NFEAT];
@@ -83,6 +92,7 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
   float c0 = 0.f, c1 = 0.f, c2 = 0.f, n0 = 0.f, n1 = 0.f, n2 = 0.f;
   float depth_acc = 0.f, med_d = 0.f, med_w = 0.f;
   int n_eval = 0, n_blend = 0;
+  int last = -1, med = -1;         // positions in the tile's pair list
 
   for (int b0 = 0; b0 < count; b0 += BATCH) {
     // CTA-wide exit once every pixel is done; also the barrier that
@@ -149,7 +159,9 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
       if (T > 0.5f) {  // median depth: last blended with pre-blend T > 0.5
         med_d = depth;
         med_w = w;
+        med = b0 + j;
       }
+      last = b0 + j;
       ++n_blend;
       T = T_after;
     }
@@ -162,6 +174,11 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
                               (float)n_eval, (float)n_blend};
 #pragma unroll
   for (int r = 0; r < NSTATE; ++r) out[r * PIX] = rows[r];
+  if (records != nullptr) {
+    int* rec = records + (size_t)tile * NREC * PIX + tid;
+    rec[0] = last;
+    rec[PIX] = med;
+  }
 }
 
 }  // namespace
@@ -169,10 +186,10 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
 extern "C" int blend_fwd_launch(const float* feats, const int* pair_rank,
                                 const int* tile_start, const int* tile_count,
                                 int num_tiles, int grid_x, float* state,
-                                void* stream) {
+                                int* records, void* stream) {
   if (num_tiles <= 0) return 0;
   blend_fwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-      feats, pair_rank, tile_start, tile_count, grid_x, state);
+      feats, pair_rank, tile_start, tile_count, grid_x, state, records);
   return (int)cudaGetLastError();
 }
 

@@ -23,11 +23,14 @@ class GaussianParams(nn.Module):
     """xyz [C,3], features_dc [C,1,3], features_rest [C,(d+1)^2-1,3],
     scaling [C,2] log-scale (2D surfel), rotation [C,4] raw wxyz,
     opacity [C,1] logit, feature [C,F] hyper coords (+ motion-mask logit
-    last); alive [C] bool buffer."""
+    last); alive [C] bool buffer.  ``isotropic_shared_scale``: one shared
+    isotropic scale, the mean of the live log-scales (the stage-1 node
+    Gaussians, gaussian_model.py:489-497)."""
 
     def __init__(self, xyz, features_dc, features_rest, scaling, rotation,
                  opacity, feature, alive, active_sh_degree: int = 0,
-                 with_motion_mask: bool = True):
+                 with_motion_mask: bool = True,
+                 isotropic_shared_scale: bool = False):
         super().__init__()
         self.xyz = nn.Parameter(xyz)
         self.features_dc = nn.Parameter(features_dc)
@@ -40,6 +43,7 @@ class GaussianParams(nn.Module):
         self.active_sh_degree = int(active_sh_degree)
         self.max_sh_degree = math.isqrt(features_rest.shape[1] + 1) - 1
         self.with_motion_mask = with_motion_mask
+        self.isotropic_shared_scale = isotropic_shared_scale
 
     @property
     def capacity(self) -> int:
@@ -51,6 +55,11 @@ class GaussianParams(nn.Module):
 
     @property
     def get_scaling(self):
+        if self.isotropic_shared_scale:
+            w = self.alive.to(self.scaling.dtype)[:, None]
+            mean = torch.sum(self.scaling * w) / torch.clamp_min(
+                torch.sum(w) * self.scaling.shape[1], 1.0)
+            return torch.exp(mean.expand(self.scaling.shape))
         return torch.exp(self.scaling)
 
     @property
@@ -91,7 +100,7 @@ def apply_deform(params: GaussianParams, d_xyz=0.0, d_rotation=0.0,
 
 def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
                     sh_degree: int = 3, fea_dim: int = 8,
-                    with_motion_mask: bool = True,
+                    with_motion_mask: bool = True, isotropic: bool = False,
                     device="cuda") -> GaussianParams:
     """Initialize from a point cloud (gaussian_model.py:145-180): scales
     from the 3-NN mean squared distance, identity rotation, opacity 0.1,
@@ -131,4 +140,4 @@ def create_from_pcd(points: np.ndarray, colors: np.ndarray, capacity: int,
         rotation=rotation,
         opacity=pad(op.expand(n, 1), (1,)),
         feature=feature, alive=alive, active_sh_degree=0,
-        with_motion_mask=with_motion_mask)
+        with_motion_mask=with_motion_mask, isotropic_shared_scale=isotropic)

@@ -1,0 +1,140 @@
+"""Deformation-field regularizers (counterpart of
+d2dgs_tpu/models/regularizers.py): the ARAP term of the main stage.
+
+Re-derivations of utils/deform_utils.py (cal_connectivity_from_points,
+estimate_rotation, cal_arap_error) and the loss entry in
+utils/time_utils.py:1080-1089.  Variable-length edge lists are dense
+[M, K] neighbour tables with zero weights for dropped edges.  The random
+draws (the time jitter, the sample times and, above ``sample_num`` nodes,
+the Gumbel keys of the node sample) come from a ``torch.Generator``,
+drawn once per term into ``ArapDraws`` (``arap_draws``); tests fill them
+from the JAX package's draws instead.  ``elastic_loss`` and ``acc_loss``
+belong to the node stage and are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.knn import knn
+from .nodes import NodeConfig, NodeParams, node_deform
+
+
+class ArapDraws(NamedTuple):
+    u_t: torch.Tensor               # 0-d uniform: the time (or its jitter)
+    u_samp: torch.Tensor            # [t_samp_num] uniforms: sample times
+    gumbel: torch.Tensor | None     # [M] Gumbel keys, when M > sample_num
+
+
+def arap_draws(generator: torch.Generator | None, m: int,
+               t_samp_num: int = 2, sample_num: int = 512) -> ArapDraws:
+    """Draw an ARAP term's random numbers on the CPU from ``generator``."""
+    u_t = torch.rand((), generator=generator)
+    u_samp = torch.rand((t_samp_num,), generator=generator)
+    gumbel = None
+    if m > sample_num:
+        u = torch.rand((m,), generator=generator)
+        tiny = torch.finfo(torch.float32).tiny
+        gumbel = -torch.log(-torch.log(torch.clamp_min(u, tiny)))
+    return ArapDraws(u_t, u_samp, gumbel)
+
+
+@torch.no_grad()
+def connectivity_from_points(points: torch.Tensor, radius: float = 0.1,
+                             K: int = 10, least_edge_num: int = 3):
+    """KNN graph with a radius cutoff beyond the first ``least_edge_num``
+    neighbours and adaptive weighting (deform_utils.py:59-115).
+    Returns (nn_idx [M,K] int64, weight [M,K], keep [M,K] bool)."""
+    d2, idx = knn(points, points, K, exclude_self=True)
+    keep = torch.arange(K, device=points.device)[None, :] < least_edge_num
+    keep = keep | (d2 < radius * radius)
+    d2 = torch.where(keep, d2, float("inf"))
+    scale = torch.mean(torch.where(torch.isfinite(d2), d2, 0.0))
+    w = torch.where(keep, torch.exp(-d2 / scale), 0.0)
+    w = w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-12)
+    return idx, w, keep
+
+
+@torch.no_grad()
+def _estimate_rotation_sampled(source, target, nn_idx_s, weight_s,
+                               sample_idx):
+    """Per-vertex weighted Procrustes rotations (deform_utils.py:131-167),
+    det-flip corrected: target edges ~ R @ source edges.  R is taken
+    without gradient, so the SVD's sign choice of paired singular vectors
+    (which R = V U^T does not see) cannot matter."""
+    E0 = source[nn_idx_s] - source[sample_idx][:, None]
+    E1 = target[nn_idx_s] - target[sample_idx][:, None]
+    S = torch.einsum("mka,mk,mkb->mab", E0, weight_s, E1)
+    unchanged = torch.all(E0 == E1, dim=2).all(dim=1)
+    S = torch.where(unchanged[:, None, None], 0.0, S)
+    U, sig, Vh = torch.linalg.svd(S)
+    V = Vh.transpose(-1, -2)
+    R = V @ U.transpose(-1, -2)
+    det = torch.linalg.det(R)
+    col = torch.argmin(sig, dim=-1)
+    flip = torch.where(torch.arange(3, device=S.device)[None, :]
+                       == col[:, None], -1.0, 1.0)
+    R_fix = V @ (U * flip[:, None, :]).transpose(-1, -2)
+    return torch.where((det <= 0)[:, None, None], R_fix, R)
+
+
+def arap_energy(nodes_seq: torch.Tensor, nn_idx, weight, sample_idx=None):
+    """cal_arap_error (deform_utils.py:177-207): sum over t>0 of weighted
+    stretch ||E_t - R E_0||^2 with no-grad best-fit rotations.
+    nodes_seq: [T, M, 3]."""
+    src = nodes_seq[0]
+    if sample_idx is not None:
+        nn_idx_s = nn_idx[sample_idx]
+        weight_s = weight[sample_idx]
+    else:
+        sample_idx = torch.arange(src.shape[0], device=src.device)
+        nn_idx_s, weight_s = nn_idx, weight
+    E0 = src[nn_idx_s] - src[sample_idx][:, None]
+    total = torch.zeros((), dtype=src.dtype, device=src.device)
+    for ti in range(1, nodes_seq.shape[0]):
+        tgt = nodes_seq[ti]
+        R = _estimate_rotation_sampled(src.detach(), tgt.detach(), nn_idx_s,
+                                       weight_s, sample_idx)
+        E1 = tgt[nn_idx_s] - tgt[sample_idx][:, None]
+        stretch = E1 - torch.einsum("mab,mkb->mka", R, E0)
+        total = total + torch.sum(weight_s * torch.sum(stretch ** 2, dim=-1))
+    return total
+
+
+def arap_loss(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
+              t=None, delta_t: float = 0.05, t_samp_num: int = 2,
+              sample_num: int = 512) -> torch.Tensor:
+    """time_utils.py:1080-1089: sample ``t_samp_num`` times in a
+    ``delta_t`` window, KNN graph (K=10) over the deformed nodes at the
+    first sample, weighted stretch energy with frozen best-fit rotations.
+    ``draws``: the term's random numbers, from ``arap_draws`` with the same
+    ``t_samp_num`` and ``sample_num``."""
+    m = params.nodes.shape[0]
+    dev = params.nodes.device
+    u_t = draws.u_t.to(dev, torch.float32)
+    if t is None:
+        t = u_t
+    else:
+        t = torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(()) \
+            + delta_t * (u_t - 0.5)
+    t_samp = draws.u_samp.to(dev, torch.float32) * delta_t + t \
+        - 0.5 * delta_t
+    tt = t_samp[None, :, None].expand(m, t_samp_num, 1)
+    d_xyz = node_deform(params, cfg, tt)["d_xyz"]           # [M,T,3]
+    nodes_t = params.nodes[:, None, :3].detach() + d_xyz
+    nodes_seq = nodes_t.transpose(0, 1)                     # [T,M,3]
+
+    # cal_arap_error is invoked WITHOUT the adaptive connectivity weights
+    # (time_utils.py:1086): every surviving edge gets weight 1
+    nn_idx, _, keep = connectivity_from_points(nodes_seq[0].detach(), K=10)
+    alive = params.alive.to(torch.float32)
+    weight = keep.to(torch.float32) * alive[nn_idx] * alive[:, None]
+    sample_idx = None
+    if m > sample_num:
+        # live nodes without replacement (deform_utils.py:189-190 uses
+        # randperm): Gumbel top-k restricted to alive slots
+        g = draws.gumbel.to(dev, torch.float32) + torch.where(
+            params.alive, 0.0, float("-inf"))
+        sample_idx = torch.topk(g, sample_num).indices
+    return arap_energy(nodes_seq, nn_idx, weight, sample_idx)

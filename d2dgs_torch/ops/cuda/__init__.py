@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels of the port, one wrapper module per kernel.
+"""Hand-written CUDA kernels of the port and their wrappers.
 
 Each wrapper builds its kernel at first use from ``d2dgs_torch/csrc``
 with ``nvcc`` (see ``build.py``), launches it on CUDA tensors, uses the

@@ -1,10 +1,12 @@
 """Tiled rasterizer (counterpart of d2dgs_tpu/ops/tiled_raster.py).
 
 ``blend_tiles`` dispatches on the tensors' device: CUDA tensors go to the
-hand-written blend kernel (ops/cuda/blend.py), CPU tensors to
-``blend_tiles_plain``, the plain PyTorch port of the JAX package's XLA
-tile blend.  Both return the same per-tile state rows, laid out like the
-TPU kernel's (d2dgs_tpu/ops/pallas/blend_tpu.py ROW_*).
+hand-written blend kernels (ops/cuda/blend.py: the forward alone under
+no_grad, the forward/backward pair ``BlendTiles`` when a gradient is
+wanted), CPU tensors to ``blend_tiles_plain``, the plain PyTorch port of
+the JAX package's XLA tile blend, differentiated by autograd.  Both
+return the same per-tile state rows, laid out like the TPU kernel's
+(d2dgs_tpu/ops/pallas/blend_tpu.py ROW_*).
 """
 from __future__ import annotations
 
@@ -32,9 +34,10 @@ ROW_N_EVAL = 14        # pairs evaluated per pixel (work counter)
 ROW_N_BLEND = 15       # pairs blended per pixel (work counter)
 
 
-def _tile_pixels(grid_x: int, num_tiles: int, device) -> torch.Tensor:
-    """Pixel-center coordinates for every tile: [T, PIX, 2]."""
-    t = torch.arange(num_tiles, device=device)
+def _tile_pixels(grid_x: int, tile_ids: torch.Tensor) -> torch.Tensor:
+    """Pixel-center coordinates of the tiles ``tile_ids``: [T, PIX, 2]."""
+    device = tile_ids.device
+    t = tile_ids
     bx = (t % grid_x) * TILE
     by = (t // grid_x) * TILE
     o = torch.arange(PIX, device=device)
@@ -52,16 +55,21 @@ def pack_features(Tmat, center, normal, colors, opacity) -> torch.Tensor:
 
 def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
                       tile_start: torch.Tensor, tile_count: torch.Tensor,
-                      grid_x: int, chunk: int = 64) -> torch.Tensor:
+                      grid_x: int, chunk: int = 64,
+                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile's pair list in chunks (port of blend_tiles_xla).
 
     feats_sorted: [N, NFEAT] features in depth order (feats[order]);
     pair_rank [B], tile_start [T], tile_count [T]: int32 from
-    ``bin_gaussians``.  Returns the state rows [T, NSTATE, PIX].
+    ``bin_gaussians``.  ``tile_ids`` (optional) gives the grid index of
+    each of the T tiles, when they are a subset of the grid (default: the
+    whole grid in order).  Returns the state rows [T, NSTATE, PIX].
     """
     num_tiles = tile_start.shape[0]
     dev = feats_sorted.device
-    pix = _tile_pixels(grid_x, num_tiles, dev)              # [T,P,2]
+    if tile_ids is None:
+        tile_ids = torch.arange(num_tiles, device=dev)
+    pix = _tile_pixels(grid_x, tile_ids)                    # [T,P,2]
     state = B.init_state((num_tiles, PIX), device=dev)
     start = tile_start.long()
     count = tile_count.long()
@@ -110,11 +118,16 @@ def blend_tiles(Tmat, center, normal, colors, opacity, binning: Binning,
     Returns (tile_color [T,P,3], tile_allmap [T,P,8], overflow 0-d int32,
     always 0: the pair buffers are sized from the measured counts).
     """
-    from .cuda.blend import blend_fwd
+    from .cuda.blend import BlendTiles, blend_fwd
     feats = pack_features(Tmat, center, normal, colors, opacity)
     feats_sorted = feats[binning.order.long()].contiguous()
-    state = blend_fwd(feats_sorted, binning.pair_rank, binning.tile_start,
-                      binning.tile_count, grid_x, chunk=cfg.chunk)
+    args = (feats_sorted, binning.pair_rank, binning.tile_start,
+            binning.tile_count, grid_x, cfg.chunk)
+    if (feats_sorted.device.type == "cuda" and torch.is_grad_enabled()
+            and feats_sorted.requires_grad):
+        state = BlendTiles.apply(*args)
+    else:
+        state = blend_fwd(*args)
     tile_color, tile_allmap = state_to_maps(state)
     overflow = torch.zeros((), dtype=torch.int32, device=feats.device)
     return tile_color, tile_allmap, overflow

@@ -1,6 +1,8 @@
 """Small general-purpose helpers (counterpart of d2dgs_tpu/utils/general.py)."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -20,6 +22,32 @@ def inverse_sigmoid(x):
     """logit; a Python float is divided in float64 and logged in float32,
     as the JAX package does with a weak-typed scalar."""
     return torch.log(torch.as_tensor(x / (1.0 - x)))
+
+
+def get_expon_lr_func(lr_init: float, lr_final: float,
+                      lr_delay_steps: int = 0, lr_delay_mult: float = 1.0,
+                      max_steps: int = 1_000_000):
+    """Log-linear LR interpolation with optional delayed warm-up
+    (general_utils.py get_expon_lr_func).  Returns step -> float, computed
+    in float32 as the JAX package does; 0 for step < 0 or a non-positive
+    end point."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32)
+
+    def helper(step) -> float:
+        step = f32(float(step))
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * torch.sin(
+                0.5 * math.pi * torch.clamp(step / lr_delay_steps, 0.0, 1.0))
+        else:
+            delay_rate = 1.0
+        t = torch.clamp(step / max_steps, 0.0, 1.0)
+        log_lerp = torch.exp(f32(math.log(lr_init)) * (1 - t)
+                             + f32(math.log(lr_final)) * t) \
+            if lr_init > 0 and lr_final > 0 else f32(0.0)
+        if float(step) < 0:
+            return 0.0
+        return float(delay_rate * log_lerp)
+    return helper
 
 
 def farthest_point_sample(points: torch.Tensor, n_sample: int,

@@ -13,7 +13,8 @@ import torch
 from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.cameras import orbit_camera
 from d2dgs_torch.ops.binning import bin_gaussians
-from d2dgs_torch.ops.cuda.blend import blend_fwd
+from d2dgs_torch.ops.cuda.blend import (DEAD_ROWS, BlendTiles, blend_bwd,
+                                       blend_fwd, blend_tiles_plain_vjp)
 from d2dgs_torch.ops.dense_raster import rasterize_dense
 from d2dgs_torch.ops.projection import preprocess, tile_grid
 from d2dgs_torch.ops.tiled_raster import (ROW_DONE, ROW_N_EVAL, ROW_T,
@@ -22,6 +23,10 @@ from d2dgs_torch.ops.tiled_raster import (ROW_DONE, ROW_N_EVAL, ROW_T,
 
 IMG = dict(rtol=1e-5, atol=1e-5)      # T, done and colour rows; the image
 AUX = dict(rtol=1e-4, atol=1e-5)      # the other state rows; the allmap
+# feature gradients, max-normalised per column: the tolerance of the JAX
+# package's kernel gradients (tests/test_pallas_blend.py); it also absorbs
+# the run-to-run order of K2's atomic sums
+GRAD = dict(rtol=2e-4, atol=2e-5)
 
 
 @pytest.fixture
@@ -88,11 +93,56 @@ def test_blend_kernel_matches_plain_on_gpu(cuda, opaque):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True], ids=["pallas", "opaque"])
+def test_blend_backward_matches_plain_vjp_on_gpu(cuda, opaque):
+    """BlendTiles (K1 in training mode, then K2) against the plain VJP
+    (autograd through blend_tiles_plain) on the same CUDA inputs, with a
+    cotangent from a seed on every state row."""
+    cam, arrs = _scene(opaque, cuda)
+    fs, rank, start, count, gx = _kernel_args(cam, *arrs)
+    f = fs.clone().requires_grad_()
+    before = (blend_fwd.launches, blend_bwd.launches)
+    state = BlendTiles.apply(f, rank, start, count, gx)
+    g = torch.randn(state.shape, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda)
+    d_kernel, = torch.autograd.grad(state, f, g)
+    torch.cuda.synchronize()
+    assert (blend_fwd.launches, blend_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    # training mode leaves the state rows as serving computes them
+    torch.testing.assert_close(state, blend_fwd(fs, rank, start, count, gx),
+                               rtol=0, atol=0)
+    d_plain = blend_tiles_plain_vjp(fs, rank, start, count, gx, g)
+    scale = d_plain.abs().amax(dim=0) + 1e-8
+    torch.testing.assert_close(d_kernel / scale, d_plain / scale, **GRAD)
+    # the cotangents of the dead rows are ignored
+    g_live = g.clone()
+    g_live[:, list(DEAD_ROWS)] = 0.0
+    d_live, = torch.autograd.grad(
+        BlendTiles.apply(f, rank, start, count, gx), f, g_live)
+    torch.testing.assert_close(d_live / scale, d_kernel / scale, **GRAD)
+
+
+@pytest.mark.cuda
 def test_blend_wrapper_refuses_bad_inputs(cuda):
     cam, arrs = _scene(False, cuda)
     fs, rank, start, count, gx = _kernel_args(cam, *arrs)
-    with pytest.raises(NotImplementedError, match="backward"):
-        blend_fwd(fs.clone().requires_grad_(), rank, start, count, gx)
+    # a CUDA input that requires grad goes through the forward kernel and,
+    # on backward, the backward kernel
+    f = fs.clone().requires_grad_()
+    before = (blend_fwd.launches, blend_bwd.launches)
+    state = BlendTiles.apply(f, rank, start, count, gx)
+    assert blend_fwd.launches == before[0] + 1
+    state[:, 4].sum().backward()
+    assert blend_bwd.launches == before[1] + 1
+    assert bool(torch.isfinite(f.grad).all())
+    records = torch.empty((start.shape[0], 2, 256), dtype=torch.int32,
+                          device=cuda)
+    with pytest.raises(ValueError, match="records"):
+        blend_fwd(fs, rank, start, count, gx, records=records[:, :1])
+    with pytest.raises(ValueError, match="g_state"):
+        blend_bwd(fs, rank, start, count, gx, state.detach(), records,
+                  state.detach()[:-1].contiguous())
     with pytest.raises(TypeError, match="pair_rank"):
         blend_fwd(fs, rank.long(), start, count, gx)
     with pytest.raises(ValueError, match="tile_count"):
