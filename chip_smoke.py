@@ -3,9 +3,10 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
-  1. require CUDA, print the card's name and power limit, build both
-     blend kernels from d2dgs_torch/csrc with nvcc (one nvcc per source,
-     started together);
+  1. require CUDA, print the card's name and power limit, build the two
+     blend sources from d2dgs_torch/csrc with nvcc (one nvcc per source,
+     started together) and bind their four entry points (K1 and K3 in
+     blend_fwd.cu, K2 and K4 in blend_bwd.cu);
   2. hold the forward kernel (K1) against its plain PyTorch version on
      the card: a 48x64 scene of 160 splats, the same scene all opaque
      (early termination), and the full-width scene of phase 3; check the
@@ -29,12 +30,28 @@ Phases (each one fails the run with a non-zero exit):
      JAX trainer's LRs at iterations 8001-8010; checks finite loss, moments and
      parameters, one K1 and one K2 launch per step, the densify counts
      and a falling L1, then times the step and its stages, K1 in training
-     mode, K2 and K2's plain version.
+     mode, K2 and K2's plain version;
+  5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
+     against their plain versions on the two 48x64 scenes and on the
+     full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
+     view again at a tile_cap of half its busiest tile (K3 must equal K1 on
+     the clamped lists, and both routes' overflow the dropped pairs), then
+     time K3, K4, their plain versions and the dense pair gather;
+  5b. the Trainer at full width on the dense route: a video of 8 orbit
+     cameras x 4 times at 800x800 rendered from the phase-3 scene moved by
+     the synthetic scene's rigid motion, a 100,000-point initial cloud,
+     the JAX TrainConfig's defaults with only the schedule cut
+     (SCHEDULE_5B): stage 1, the node downsampling and the main stage
+     with densification, 99 iterations; checks finite losses, moments and
+     parameters, one K3 and one K4 launch per training step and none of
+     K1/K2, node_num node Gaussians after the downsampling and a rising
+     stage-1 PSNR, then reports the mean step time of each stage.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -168,6 +185,22 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
             "max_abs_err": max(row_err.values()), "flip_mask": flip}
 
 
+def check_states(tag, label, sk, sp, pairs):
+    """Kernel state rows ``sk`` against the plain version's ``sp``: log the
+    comparison and raise past the tolerances."""
+    res = compare_states(sk, sp)
+    log(f"[{tag}] {label}: pairs {pairs}, flipped "
+        f"pixels {res['flipped']}/{res['pixels']}, outside-tolerance "
+        f"pixels beyond flips {res['bad_outside_flips']}, max |err| per row "
+        + json.dumps({str(k): v for k, v in res['row_max_abs_err'].items()}))
+    if res["bad_outside_flips"] or \
+            res["flipped"] > MAX_FLIP_SHARE * res["pixels"]:
+        summary = {k: v for k, v in res.items() if k != "flip_mask"}
+        raise AssertionError(f"blend kernel disagrees with its plain "
+                             f"version on {label}: {summary}")
+    return res
+
+
 def check_kernel(label, feats_sorted, binning, gx, chunk):
     from d2dgs_torch.ops.cuda.blend import blend_fwd
     from d2dgs_torch.ops.tiled_raster import blend_tiles_plain
@@ -177,17 +210,8 @@ def check_kernel(label, feats_sorted, binning, gx, chunk):
     torch.cuda.synchronize()
     sp = blend_tiles_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
-    res = compare_states(sk, sp)
-    log(f"[phase 2] {label}: pairs {int(binning.num_pairs)}, flipped "
-        f"pixels {res['flipped']}/{res['pixels']}, outside-tolerance "
-        f"pixels beyond flips {res['bad_outside_flips']}, max |err| per row "
-        + json.dumps({str(k): v for k, v in res['row_max_abs_err'].items()}))
-    if res["bad_outside_flips"] or \
-            res["flipped"] > MAX_FLIP_SHARE * res["pixels"]:
-        summary = {k: v for k, v in res.items() if k != "flip_mask"}
-        raise AssertionError(f"blend kernel disagrees with its plain "
-                             f"version on {label}: {summary}")
-    return sk, res
+    return sk, check_states("phase 2", label, sk, sp,
+                            int(binning.num_pairs))
 
 
 def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
@@ -226,14 +250,21 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     torch.cuda.synchronize()
     dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
     torch.cuda.synchronize()
+    n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
+    n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
+    return check_grads("phase 2b", label, dk, dp, n_flip, n_pix)
+
+
+def check_grads(tag, label, dk, dp, n_flip, n_pix):
+    """Kernel feature gradients ``dk`` against the plain version's ``dp``
+    (rows of NFEAT), each column max-normalised; raise past GRAD."""
+    dk, dp = dk.reshape(-1, dk.shape[-1]), dp.reshape(-1, dp.shape[-1])
     scale = dp.abs().amax(dim=0) + 1e-30
     err = (dk - dp).abs() / scale
     rtol, atol = GRAD
     bad = int((err > atol + rtol * dp.abs() / scale).sum())
-    n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
-    n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
     max_err = float(err.max())
-    log(f"[phase 2b] {label}: flipped pixels excluded {n_flip}/{n_pix}, "
+    log(f"[{tag}] {label}: flipped pixels excluded {n_flip}/{n_pix}, "
         f"max normalised |err| {max_err:.3g} (per column "
         + json.dumps([round(float(e), 9) for e in err.amax(dim=0)])
         + f"), entries outside rtol {rtol} atol {atol}: {bad}")
@@ -345,14 +376,46 @@ def check_trained(state, metrics, step):
                                          f"of {name}.{k}")
 
 
+def step_stage_ms(fwd_stages: dict, full_loss, groups, extra_inputs,
+                  reps: int) -> dict:
+    """CUDA-event times of the forward stages ``fwd_stages`` (name -> fn,
+    each run alone), of the backward of ``full_loss()`` in the groups'
+    parameters and ``extra_inputs``, and of Adam on copies of the groups
+    (so the timing does not move the model)."""
+    from d2dgs_torch.train.optim import adam_init, adam_update
+    inputs = [p for grp in groups for p in grp.values()] + extra_inputs
+    back = []
+    for _ in range(reps + 1):
+        loss = full_loss()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(loss, inputs, allow_unused=True)
+        end.record()
+        torch.cuda.synchronize()
+        back.append(start.elapsed_time(end))
+    copies = [{k: p.detach().clone() for k, p in grp.items()}
+              for grp in groups]
+    opts = [adam_init(c) for c in copies]
+    grads = [{k: torch.randn_like(p) for k, p in c.items()} for c in copies]
+
+    def adam():
+        for gr, o, c in zip(grads, opts, copies):
+            adam_update(gr, o, c, 1e-3)
+
+    res = {k: cuda_ms(fn, reps) for k, fn in fwd_stages.items()}
+    res.update(backward=float(np.mean(back[1:])), adam=cuda_ms(adam, reps))
+    return res
+
+
 def train_stage_ms(state, cam, gt, cfg, sched, reps: int = 3) -> dict:
-    """CUDA-event time of each stage of one training step, run alone:
+    """CUDA-event time of each stage of one main-stage step, run alone:
     warp forward, render forward, the losses, the backward, Adam."""
     from d2dgs_torch.models import regularizers as R
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.ops.ssim import l1, ssim
     from d2dgs_torch.render.renderer import render
-    from d2dgs_torch.train.optim import adam_init, adam_update
     from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
                                            node_trainable, photometric_loss)
     g, nodes = state.gauss, state.nodes
@@ -385,53 +448,493 @@ def train_stage_ms(state, cam, gt, cfg, sched, reps: int = 3) -> dict:
         return loss + sched["lambda_arap"] * R.arap_loss(
             nodes, cfg.node_cfg, draws)
 
-    groups = [gauss_trainable(g), mlp_trainable(nodes), node_trainable(nodes)]
-    inputs = [p for grp in groups for p in grp.values()] + [probe]
-    back = []
-    for _ in range(reps + 1):
-        loss = photometric_loss(g, nodes, cam, gt, probe, cfg, sched, bg)[0] \
+    def full_loss():
+        return photometric_loss(g, nodes, cam, gt, probe, cfg, sched, bg)[0] \
             + sched["lambda_arap"] * R.arap_loss(nodes, cfg.node_cfg, draws)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.autograd.grad(loss, inputs, allow_unused=True)
-        end.record()
-        torch.cuda.synchronize()
-        back.append(start.elapsed_time(end))
-    # Adam on copies, so the timing does not move the model
-    copies = [{k: p.detach().clone() for k, p in grp.items()}
-              for grp in groups]
-    opts = [adam_init(c) for c in copies]
-    grads = [{k: torch.randn_like(p) for k, p in c.items()} for c in copies]
 
-    def adam():
-        for gr, o, c in zip(grads, opts, copies):
-            adam_update(gr, o, c, 1e-3)
-
-    return {"warp_fwd": cuda_ms(warp, reps), "render_fwd": cuda_ms(fwd, reps),
-            "losses": cuda_ms(losses, reps),
-            "backward": float(np.mean(back[1:])),
-            "adam": cuda_ms(adam, reps)}
+    groups = [gauss_trainable(g), mlp_trainable(nodes), node_trainable(nodes)]
+    return step_stage_ms({"warp_fwd": warp, "render_fwd": fwd,
+                          "losses": losses}, full_loss, groups, [probe], reps)
 
 
-def k2_bound(fs, binning, state, records, n_reduce: int):
-    """Least time of K2 on these inputs: float32 operations of the pairs
-    each pixel walks and blends, against bytes read and written once plus
-    the atomics issued."""
+def node_stage_ms(state, cam, gt, cfg, sched, reps: int = 3) -> dict:
+    """The same for one stage-1 step (node_stage_step): the MLP warp of the
+    node Gaussians, their render, the photometric losses, the elastic,
+    acceleration and ARAP terms, the backward, Adam."""
+    from d2dgs_torch.models import regularizers as R
+    from d2dgs_torch.models.deform_mlp import mlp_forward
+    from d2dgs_torch.ops.ssim import l1, ssim
+    from d2dgs_torch.render.renderer import render
+    from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
+                                           node_trainable)
+    ng, nodes, ncfg = state.ngauss, state.nodes, cfg.node_cfg
+    dev = ng.xyz.device
+    bg = torch.zeros(3, device=dev)
+    probe = torch.zeros((ng.capacity, 2), device=dev, requires_grad=True)
+    gen = torch.Generator().manual_seed(7)
+    arap_d = R.arap_draws(gen, nodes.nodes.shape[0])
+    elastic_d, acc_d = R.time_draws(gen, 8), R.time_draws(gen)
+    t = cam.time.reshape(1, 1).expand(ng.capacity, 1)
+    dt = sched["time_interval"]
+
+    def warp():
+        return mlp_forward(nodes.mlp, ncfg.mlp, ng.xyz.detach(),
+                           t)["d_xyz"] * ng.motion_mask
+
+    d = warp()
+
+    def fwd(d_xyz=d):
+        return render(cam, ng, bg, d_xyz=d_xyz, screen_probe=probe,
+                      cfg=cfg.raster)
+
+    out = fwd()
+
+    def photometric(o=out):
+        return (1.0 - cfg.lambda_dssim) * l1(o.image, gt) \
+            + cfg.lambda_dssim * (1.0 - ssim(o.image, gt))
+
+    def regularizers():
+        return (cfg.lambda_elastic * R.elastic_loss(
+                    nodes, ncfg, elastic_d, t=cam.time, delta_t=dt)
+                + cfg.lambda_acc * R.acc_loss(nodes, ncfg, acc_d, t=cam.time,
+                                              delta_t=3.0 * dt)
+                + cfg.lambda_node_arap * R.arap_loss(nodes, ncfg, arap_d))
+
+    groups = [gauss_trainable(ng), mlp_trainable(nodes), node_trainable(nodes)]
+    return step_stage_ms(
+        {"warp_fwd": warp, "render_fwd": fwd, "photometric": photometric,
+         "regularizers": regularizers},
+        lambda: photometric(fwd(warp())) + regularizers(), groups, [probe],
+        reps)
+
+
+def fwd_bound(state, in_bytes: int) -> dict:
+    """Least time of a blend forward (K1 or K3): float32 operations of the
+    pairs each pixel evaluated and blended (state rows 14 and 15), against
+    ``in_bytes`` read once plus the state rows written once."""
+    from d2dgs_torch.ops.tiled_raster import ROW_N_BLEND, ROW_N_EVAL
+    n_eval = float(state[:, ROW_N_EVAL].to(torch.float64).sum())
+    n_blend = float(state[:, ROW_N_BLEND].to(torch.float64).sum())
+    ops = OPS_EVAL * n_eval + OPS_BLEND * n_blend
+    nbytes = in_bytes + state.numel() * 4
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return {"n_eval": n_eval, "n_blend": n_blend, "ops": ops,
+            "bytes": nbytes, "t_ops": t_ops, "t_bytes": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bwd_bound(state, records, in_bytes: int, out_bytes: int,
+              n_reduce: int) -> dict:
+    """Least time of a blend backward (K2 or K4): float32 operations of
+    the pairs each pixel walks and blends, against the feature bytes read
+    (``in_bytes``) and the gradient bytes written (``out_bytes``) once,
+    the state, records and cotangent rows read per pixel, and the atomics
+    issued."""
     from d2dgs_torch.ops.cuda.blend import REC_LAST
     from d2dgs_torch.ops.tiled_raster import NFEAT, PIX, ROW_N_BLEND
     n_eval = float((records[:, REC_LAST].to(torch.float64) + 1.0).sum())
     n_blend = float(state[:, ROW_N_BLEND].to(torch.float64).sum())
     ops = OPS_EVAL * n_eval + OPS_BWD_BLEND * n_blend
     num_tiles = state.shape[0]
-    nbytes = (2 * fs.numel() * 4 + binning.pair_rank.numel() * 4
-              + num_tiles * 4 + num_tiles * PIX * 4 * (3 + 2 + 11)
+    nbytes = (in_bytes + out_bytes + num_tiles * PIX * 4 * (3 + 2 + 11)
               + n_reduce * NFEAT * 4)
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return {"n_eval": n_eval, "n_blend": n_blend, "ops": ops,
             "bytes": nbytes, "n_reduce": n_reduce, "t_ops": t_ops,
-            "t_bytes": t_bytes}
+            "t_bytes": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def k2_bound(fs, binning, state, records, n_reduce: int):
+    """K2's bound: sorted features in and their gradients out once, the
+    pair ranks and tile starts."""
+    return bwd_bound(state, records,
+                     fs.numel() * 4 + binning.pair_rank.numel() * 4
+                     + state.shape[0] * 4, fs.numel() * 4, n_reduce)
+
+
+def dense_inputs(feats_sorted, binning, tile_cap: int):
+    """The dense route's (gdata, counts) for one view, from its depth-sorted
+    features (build_gdata with the identity order)."""
+    from d2dgs_torch.ops.cuda.blend_dense import build_gdata
+    ident = torch.arange(feats_sorted.shape[0], dtype=torch.int32,
+                         device=feats_sorted.device)
+    return build_gdata(feats_sorted, binning._replace(order=ident), tile_cap)
+
+
+def dense_row_bytes(counts) -> int:
+    """Bytes of the gdata rows the dense kernels read: each tile's first
+    counts[t] rows of 18 floats, and the counts."""
+    from d2dgs_torch.ops.tiled_raster import NFEAT
+    return int(counts.to(torch.int64).sum()) * NFEAT * 4 + counts.numel() * 4
+
+
+def check_dense_kernel(label, gdata, counts, gx, chunk):
+    """K3 against blend_dense_plain on one view."""
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
+                                                  blend_dense_plain)
+    sk = blend_dense_fwd(gdata, counts, gx)
+    torch.cuda.synchronize()
+    sp = blend_dense_plain(gdata, counts, gx, chunk=chunk)
+    torch.cuda.synchronize()
+    return sk, check_states("phase 5a", label, sk, sp,
+                            int(counts.to(torch.int64).sum()))
+
+
+def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
+    """K4 against blend_dense_plain_vjp, as check_backward holds K2: a
+    seeded cotangent on the map rows, zero at the flipped pixels and, with
+    ``tiles``, outside those tiles."""
+    from d2dgs_torch.ops.cuda.blend import NREC
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
+                                                  blend_dense_fwd,
+                                                  blend_dense_plain_vjp)
+    from d2dgs_torch.ops.tiled_raster import PIX
+    num_tiles = gdata.shape[0]
+    records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
+                          device=gdata.device)
+    state = blend_dense_fwd(gdata, counts, gx, records=records)
+    g = torch.where(flip[:, None, :], 0.0, map_cotangent(state, seed=4))
+    if tiles is not None:
+        keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
+        keep[tiles] = True
+        g = torch.where(keep[:, None, None], g, 0.0)
+    dk = blend_dense_bwd(gdata, counts, gx, state, records, g)
+    torch.cuda.synchronize()
+    dp = blend_dense_plain_vjp(gdata, counts, gx, g, tiles=tiles, chunk=chunk)
+    torch.cuda.synchronize()
+    past = torch.arange(gdata.shape[1], device=gdata.device)[None, :] \
+        >= counts[:, None]
+    if bool(dk[past].any()):
+        raise AssertionError(f"K4 wrote gradients past the counts on {label}")
+    if tiles is not None:
+        dk, dp = dk[tiles], dp[tiles]
+    n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
+    n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
+    return check_grads("phase 5a", label, dk, dp, n_flip, n_pix)
+
+
+def plain_dense_vjp_all_tiles_ms(gdata, counts, gx, g, chunk,
+                                 batch: int = 64) -> float:
+    """CUDA-event time of K4's plain version over every tile, in batches of
+    ``batch`` tiles of similar pair counts (as plain_vjp_all_tiles_ms)."""
+    from d2dgs_torch.ops.cuda.blend_dense import blend_dense_plain_vjp
+    order = torch.argsort(counts, descending=True)
+    total = 0.0
+    for b0 in range(0, order.numel(), batch):
+        tiles = order[b0:b0 + batch]
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        blend_dense_plain_vjp(gdata, counts, gx, g, tiles=tiles, chunk=chunk)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total
+
+
+def launch_counts() -> dict:
+    """Each blend kernel's launches since its counter was last reset."""
+    from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
+                                                  blend_dense_fwd)
+    return {f.__name__: f.launches
+            for f in (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd)}
+
+
+def reset_counts():
+    from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
+                                                  blend_dense_fwd)
+    for f in (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd):
+        f.launches = 0
+
+
+def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
+    """K3 and K4 against their plain versions on the two 48x64 scenes and
+    the full-width t=0.5 view, the view again at a tile_cap below its
+    busiest tile, then their times beside their bounds and plain times."""
+    from d2dgs_torch.ops.cuda.blend import NREC, blend_fwd
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
+                                                  blend_dense_fwd,
+                                                  blend_dense_plain,
+                                                  build_gdata)
+    from d2dgs_torch.ops.tiled_raster import PIX
+    dev = fs_t.device
+    checks, grads = {}, {}
+    for opaque in (False, True):
+        arrs = [torch.as_tensor(a, device=dev) for a in small_scene(opaque)]
+        alive = torch.ones(arrs[0].shape[0], dtype=torch.bool, device=dev)
+        fs, binning, gx = splat_inputs(*arrs, alive, cam_s, cfg)
+        gdata, counts = dense_inputs(fs, binning, cfg.tile_cap)
+        label = "48x64 opaque" if opaque else "48x64"
+        _, checks[label] = check_dense_kernel(label, gdata, counts, gx,
+                                              cfg.chunk)
+        grads[label] = check_dense_backward(label, gdata, counts, gx,
+                                            cfg.chunk,
+                                            checks[label].pop("flip_mask"))
+    with torch.no_grad():
+        gdata, counts = dense_inputs(fs_t, bin_t, cfg.tile_cap)
+        label = "800x800 t=0.5"
+        state_k3, checks[label] = check_dense_kernel(label, gdata, counts,
+                                                     gx_t, cfg.chunk)
+        tiles = heavy_and_random_tiles(bin_t.tile_count, 16, 48, seed=8)
+        grads[label] = check_dense_backward(
+            label + ", 16 heaviest + 48 seeded tiles", gdata, counts, gx_t,
+            cfg.chunk, checks[label].pop("flip_mask"), tiles=tiles)
+
+        # truncation on the card: half the busiest tile's pairs
+        busiest = int(bin_t.tile_count.max())
+        cap = busiest // 2
+        g_cut, c_cut = dense_inputs(fs_t, bin_t, cap)
+        label_cut = f"800x800 t=0.5, tile_cap {cap} < busiest {busiest}"
+        s_cut, checks[label_cut] = check_dense_kernel(label_cut, g_cut, c_cut,
+                                                      gx_t, cfg.chunk)
+        checks[label_cut].pop("flip_mask")
+        k1_cut = blend_fwd(fs_t, bin_t.pair_rank, bin_t.tile_start,
+                           torch.clamp_max(bin_t.tile_count, cap), gx_t)
+        if not torch.equal(k1_cut, s_cut):
+            raise AssertionError("K3 and K1 differ on the same clamped "
+                                 "pair lists")
+        overflow = {}
+        for wq in (False, True):
+            c = dataclasses.replace(cfg, tile_cap=cap, use_workqueue=wq)
+            overflow["wq" if wq else "dense"] = int(
+                render_overflow(fs_t, bin_t, gx_t, c))
+        dropped = int(torch.clamp_min(bin_t.tile_count - cap, 0).sum())
+        log(f"[phase 5a] {label_cut}: overflow dense {overflow['dense']}, "
+            f"work queue {overflow['wq']}, pairs past the cap {dropped}; K3 "
+            f"equals K1 on the clamped lists bit for bit")
+        if not overflow["dense"] == overflow["wq"] == dropped > 0:
+            raise AssertionError(f"overflow {overflow} != {dropped}")
+        del g_cut, c_cut, s_cut, k1_cut
+
+        # times on the t=0.5 view: K3/K4 beside their bounds and plain
+        # versions, and the dense layout's gather
+        records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
+                              device=dev)
+        state = blend_dense_fwd(gdata, counts, gx_t, records=records)
+        g = map_cotangent(state, seed=9)
+        n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
+        blend_dense_bwd(gdata, counts, gx_t, state, records, g,
+                        n_reduce=n_reduce)
+        k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t),
+                        reps=20)
+        k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
+            gdata, counts, gx_t, records=records), reps=20)
+        k4_ms = cuda_ms(lambda: blend_dense_bwd(gdata, counts, gx_t, state,
+                                                records, g), reps=20)
+        k3_plain_ms = cuda_ms(lambda: blend_dense_plain(
+            gdata, counts, gx_t, chunk=cfg.chunk), reps=3)
+        k4_plain_ms = plain_dense_vjp_all_tiles_ms(gdata, counts, gx_t, g,
+                                                   cfg.chunk)
+        ident = torch.arange(fs_t.shape[0], dtype=torch.int32, device=dev)
+        b_id = bin_t._replace(order=ident)
+        gather_ms = cuda_ms(lambda: build_gdata(fs_t, b_id, cfg.tile_cap),
+                            reps=5)
+    f = fs_t.detach().requires_grad_()
+    gd, _ = build_gdata(f, b_id, cfg.tile_cap)
+    d_gdata = torch.randn_like(gd)
+    back = []
+    for _ in range(4):
+        gd, _ = build_gdata(f, b_id, cfg.tile_cap)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(gd, f, d_gdata)
+        end.record()
+        torch.cuda.synchronize()
+        back.append(start.elapsed_time(end))
+    del gd, d_gdata, f
+    row_bytes = dense_row_bytes(counts)
+    b3 = fwd_bound(state, row_bytes)
+    b4 = bwd_bound(state, records, row_bytes, gdata.numel() * 4,
+                   int(n_reduce))
+    res = {"k3_ms": k3_ms, "k3_train_ms": k3_train_ms, "k4_ms": k4_ms,
+           "k3_plain_ms": k3_plain_ms, "k4_plain_ms": k4_plain_ms,
+           "gather_ms": gather_ms, "gather_bwd_ms": float(np.mean(back[1:])),
+           "gdata_bytes": gdata.numel() * 4, "k3_bound": b3, "k4_bound": b4,
+           "checks": checks, "grads": grads,
+           "k3_max_abs_err": checks[label]["max_abs_err"],
+           "k4_max_abs_err": grads[label]["max_abs_err"]}
+    log(f"[phase 5a] t=0.5 view ({card}): K3 {k3_ms:.4f} ms (training mode "
+        f"{k3_train_ms:.4f}), bound {b3['bound_ms']:.4f} ms by "
+        f"{b3['bound_by']} ({b3['ops']:.4g} ops, {b3['bytes']} B), plain "
+        f"{k3_plain_ms:.1f} ms; K4 {k4_ms:.4f} ms, bound "
+        f"{b4['bound_ms']:.4f} ms by {b4['bound_by']} ({b4['ops']:.4g} ops, "
+        f"{b4['bytes']} B, {int(n_reduce)} warp sums), plain "
+        f"{k4_plain_ms:.1f} ms (64-tile batches); build_gdata "
+        f"{gather_ms:.4f} ms, its transpose {res['gather_bwd_ms']:.4f} ms, "
+        f"gdata {gdata.numel() * 4} B")
+    return res
+
+
+def render_overflow(fs_sorted, binning, gx, cfg):
+    """blend_tiles' overflow count on one view's depth-sorted features."""
+    from d2dgs_torch.ops.tiled_raster import blend_tiles
+    ident = torch.arange(fs_sorted.shape[0], dtype=torch.int32,
+                         device=fs_sorted.device)
+    f = fs_sorted
+    _, _, overflow = blend_tiles(
+        f[:, 0:9].reshape(-1, 3, 3), f[:, 9:11], f[:, 11:14], f[:, 14:17],
+        f[:, 17], binning._replace(order=ident), gx,
+        binning.tile_start.shape[0] // gx, cfg)
+    return overflow
+
+
+# phase 5b: the JAX TrainConfig's defaults with only the schedule cut
+SCHEDULE_5B = dict(node_warm_up=20, iterations_node_sampling=50,
+                   iterations_node_rendering=60, densification_interval=10,
+                   densify_from_iter=5, opacity_reset_interval=40,
+                   warm_up=10, iterations=40, oneup_sh_degree_step=10,
+                   normal_dist_from_iter=20, node_force_densify_prune_step=25,
+                   densify_until_iter=50)
+
+
+def phase_5b(dev, card) -> dict:
+    """The Trainer from a 100,000-point cloud through stage 1, the node
+    downsampling and the main stage with densification, at 800x800 on the
+    dense route (K3/K4), on a video of the phase-3 scene."""
+    from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch.data.synthetic import rigid_motion, video_cameras
+    from d2dgs_torch.render.renderer import render
+    from d2dgs_torch.train import trainer as T
+    from d2dgs_torch.train.config import TrainConfig
+    t0 = time.time()
+    gauss, _, _ = full_scene(dev)
+    cams = video_cameras(8, 4, 800, 800, device=dev)
+    bg = torch.zeros(3, device=dev)
+    with torch.no_grad():
+        images = [render(c, gauss, bg, d_xyz=rigid_motion(gauss.xyz, c.time)
+                         - gauss.xyz).image for c in cams]
+    del gauss
+    rs = np.random.RandomState(0)
+    n_pts = 100_000
+    pts = rs.random((n_pts, 3)) * 2.6 - 1.3
+    cols = 0.5 + 0.28209479177387814 * rs.random((n_pts, 3)) / 255
+    cfg = TrainConfig(raster=RasterConfig(use_workqueue=False),
+                      **SCHEDULE_5B)
+    tr = T.Trainer(cfg, cams, images, pts.astype(np.float32),
+                   cols.astype(np.float32), cameras_extent=4.0, seed=0,
+                   device=dev)
+    torch.cuda.synchronize()
+    log(f"[phase 5b] video of {len(cams)} 800x800 views rendered and "
+        f"Trainer built ({int(tr.state.gauss.num_alive)} Gaussians, "
+        f"{int(tr.state.ngauss.num_alive)} node Gaussians, "
+        f"{int(tr.state.nodes.num_alive)} nodes) in {time.time() - t0:.1f} s")
+
+    # the stage-1 step's stages on the initial state, with every term on
+    node_stages = node_stage_ms(tr.state, cams[0], tr.images[0], cfg,
+                                dict(time_interval=tr.time_interval))
+    log(f"[phase 5b] stage-1 step on the initial state ({card}), stages (ms, "
+        f"each timed alone): " + json.dumps(node_stages))
+
+    infos, originals = [], {}
+    for name in ("densify_step", "node_densify_step"):
+        def recorded(*a, _f=getattr(T, name), _n=name, **k):
+            state, info = _f(*a, **k)
+            infos.append((_n, tr.iteration_node, tr.iteration,
+                          {key: int(v) for key, v in info.items()}))
+            return state, info
+        originals[name] = getattr(T, name)
+        setattr(T, name, recorded)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rows, downsampled = [], None
+    for i in range(tr.total_iterations()):
+        stage = ("node" if tr.iteration_node < cfg.iterations_node_rendering
+                 else "main")
+        it = tr.iteration_node if stage == "node" else tr.iteration
+        before = launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = tr.step()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        want = 1 if m else 0
+        if delta != {"blend_fwd": 0, "blend_bwd": 0,
+                     "blend_dense_fwd": want, "blend_dense_bwd": want}:
+            raise AssertionError(f"{stage} iteration {it}: launches {delta}")
+        if stage == "node" and it == cfg.iterations_node_sampling:
+            downsampled = int(tr.state.ngauss.num_alive)
+        if m:
+            check_finite(tr.state, m, stage, it)
+            rows.append((stage, it, float(m["loss"]), float(m["psnr"]),
+                         int(m["num_pairs"]), int(m["overflow"]), ms))
+            log(f"[phase 5b] {stage} {it}: L1 {rows[-1][2]:.5f}, PSNR "
+                f"{rows[-1][3]:.3f}, pairs {rows[-1][4]}, overflow "
+                f"{rows[-1][5]}, {ms:.2f} ms")
+        else:
+            log(f"[phase 5b] {stage} {it}: no step (downsampling), "
+                f"{ms:.2f} ms")
+    counts = launch_counts()
+    for name, f in originals.items():
+        setattr(T, name, f)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, it_n, it_m, info in infos:
+        log(f"[phase 5b] {name} at node iteration {it_n}, main iteration "
+            f"{it_m}: {info}")
+    if downsampled != cfg.node_num:
+        raise AssertionError(f"{downsampled} node Gaussians alive after the "
+                             f"downsampling, expected {cfg.node_num}")
+    node = [r for r in rows if r[0] == "node"]
+    early = [r[3] for r in node if r[1] < cfg.opacity_reset_interval]
+    if not np.mean(early[-5:]) > np.mean(early[:5]):
+        raise AssertionError(f"stage-1 PSNR did not rise before the first "
+                             f"opacity reset: {early}")
+    node_ms = [r[6] for r in node[1:]]
+    main_ms = [r[6] for r in rows if r[0] == "main"][1:]
+    pairs = {st: [r[4] for r in rows if r[0] == st] for st in ("node", "main")}
+    res = {"node_step_ms": float(np.mean(node_ms)),
+           "main_step_ms": float(np.mean(main_ms)),
+           "node_step_ms_median": float(np.median(node_ms)),
+           "main_step_ms_median": float(np.median(main_ms)),
+           "pairs_range": {st: [min(v), max(v)] for st, v in pairs.items()},
+           "node_stages_ms": node_stages,
+           "peak_gb": peak_gb,
+           "launches": counts, "steps": len(rows),
+           "psnr_first5": float(np.mean(early[:5])),
+           "psnr_before_reset": float(np.mean(early[-5:])),
+           "alive_end": int(tr.state.gauss.num_alive),
+           "nodes_end": int(tr.state.nodes.num_alive),
+           "overflow_max": max(r[5] for r in rows), "densify": infos}
+    log(f"[phase 5b] {len(rows)} training steps ({card}): node stage mean "
+        f"{res['node_step_ms']:.2f} ms (median "
+        f"{res['node_step_ms_median']:.2f}), main stage mean "
+        f"{res['main_step_ms']:.2f} ms (median "
+        f"{res['main_step_ms_median']:.2f}) per step (each stage's first "
+        f"step excluded); pairs per view {res['pairs_range']}; overflow max "
+        f"{res['overflow_max']}; stage-1 PSNR {res['psnr_first5']:.3f} (steps 1-5) -> "
+        f"{res['psnr_before_reset']:.3f} (the 5 before the opacity reset); "
+        f"{res['alive_end']} Gaussians and {res['nodes_end']} nodes alive at "
+        f"the end; launches {counts}; peak memory {peak_gb:.2f} GB")
+    return res
+
+
+def check_finite(state, metrics, stage, it):
+    """Finite loss, moments and parameters of the stage's three groups."""
+    from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
+                                           node_trainable)
+    if not bool(torch.isfinite(metrics["loss"])):
+        raise AssertionError(f"{stage} {it}: loss {metrics['loss']}")
+    points, opt = ((state.ngauss, state.ngauss_opt) if stage == "node"
+                   else (state.gauss, state.gauss_opt))
+    for name, params, o in (("points", gauss_trainable(points), opt),
+                            ("mlp", mlp_trainable(state.nodes),
+                             state.mlp_opt),
+                            ("node", node_trainable(state.nodes),
+                             state.node_opt)):
+        for k, p in params.items():
+            for what, t in (("param", p), ("mu", o.mu[k]), ("nu", o.nu[k])):
+                if not bool(torch.isfinite(t).all()):
+                    raise AssertionError(f"{stage} {it}: non-finite {what} "
+                                         f"of {name}.{k}")
 
 
 def main() -> int:
@@ -446,12 +949,12 @@ def main() -> int:
     from d2dgs_torch.models.gaussians import apply_deform
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
+    from d2dgs_torch.ops.cuda import blend as blend_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
-    from d2dgs_torch.ops.tiled_raster import (PIX, ROW_N_BLEND, ROW_N_EVAL,
-                                              blend_tiles_plain,
+    from d2dgs_torch.ops.tiled_raster import (PIX, blend_tiles_plain,
                                               pack_features, rasterize_tiled)
     from d2dgs_torch.render.renderer import render
     from d2dgs_torch.train.config import TrainConfig
@@ -471,7 +974,11 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[phase 1] ptxas: {line.strip()}")
-    log(f"[phase 1] both kernels built in {time.time() - t0:.1f} s")
+    log(f"[phase 1] both sources built in {time.time() - t0:.1f} s")
+    blend_lib._lib()        # binds K1's and K3's entry points, or raises
+    blend_lib._lib_bwd()    # K2's and K4's
+    log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
+        "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4)")
     cfg = RasterConfig()
 
     # ---- phase 2 and 2b: kernels vs plain on small scenes ----
@@ -571,7 +1078,7 @@ def main() -> int:
         del res0["flip_mask"]
 
         # ---- phase 3: the served path, counted ----
-        blend_fwd.launches = blend_bwd.launches = 0
+        reset_counts()
         outs = []
         for i, cam in enumerate(cams):
             out = serve(cam)
@@ -580,10 +1087,9 @@ def main() -> int:
                 raise AssertionError(f"request {i}: blend kernel launches "
                                      f"{blend_fwd.launches}, expected {i + 1}")
             outs.append(out)
-        serve_launches = {"blend_fwd": blend_fwd.launches,
-                          "blend_bwd": blend_bwd.launches}
-        if serve_launches["blend_bwd"]:
-            raise AssertionError("serving launched the backward kernel")
+        serve_launches = launch_counts()
+        if serve_launches["blend_bwd"] or serve_launches["blend_dense_fwd"]:
+            raise AssertionError(f"serving launched {serve_launches}")
         for t, out in zip(times, outs):
             if out.image.shape != (800, 800, 3) or \
                     out.depth.shape != (800, 800, 1):
@@ -622,17 +1128,13 @@ def main() -> int:
 
     # bound of the t=0 launch: bytes in and out once, and the float32
     # operations of the pairs each pixel evaluated and blended
-    n_eval = float(state0[:, ROW_N_EVAL].sum())
-    n_blend = float(state0[:, ROW_N_BLEND].sum())
-    ops = OPS_EVAL * n_eval + OPS_BLEND * n_blend
-    nbytes = (fs0.numel() * 4 + bin0.pair_rank.numel() * 4
-              + 2 * bin0.tile_start.numel() * 4
-              + state0.numel() * 4)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
-    log(f"[phase 3] t=0 bound: {n_eval:.0f} pair-pixel evaluations, "
-        f"{n_blend:.0f} blends, {ops:.4g} float32 ops -> {t_ops:.4f} ms; "
-        f"{nbytes} bytes -> {t_bytes:.4f} ms; plain version {plain_ms:.3f} "
-        f"ms; mean render {np.mean(render_ms):.3f} ms")
+    bound1 = fwd_bound(state0, fs0.numel() * 4 + bin0.pair_rank.numel() * 4
+                       + 2 * bin0.tile_start.numel() * 4)
+    log(f"[phase 3] t=0 bound: {bound1['n_eval']:.0f} pair-pixel "
+        f"evaluations, {bound1['n_blend']:.0f} blends, {bound1['ops']:.4g} "
+        f"float32 ops -> {bound1['t_ops']:.4f} ms; {bound1['bytes']} bytes "
+        f"-> {bound1['t_bytes']:.4f} ms; plain version {plain_ms:.3f} ms; "
+        f"mean render {np.mean(render_ms):.3f} ms")
 
     # ---- phase 4: the training path at full width, counted ----
     tcfg = TrainConfig(gaussian_capacity=gauss.capacity)
@@ -660,7 +1162,7 @@ def main() -> int:
                    lambda_arap=0.01, xyz_lr=xyz_sched(it),
                    deform_lr=deform_sched(it), step=it) for it in its]
     torch.cuda.reset_peak_memory_stats()
-    blend_fwd.launches = blend_bwd.launches = 0
+    reset_counts()
     l1s, step_ms = [], []
     for i, sched in enumerate(scheds):
         before = (blend_fwd.launches, blend_bwd.launches)
@@ -689,8 +1191,7 @@ def main() -> int:
         log(f"[phase 4] step {i}: L1 {l1s[-1]:.6f}, PSNR "
             f"{float(metrics['psnr']):.3f}, pairs {int(metrics['num_pairs'])}"
             f", visible {int(seen.sum())}, {step_ms[-1]:.3f} ms")
-    train_launches = {"blend_fwd": blend_fwd.launches,
-                      "blend_bwd": blend_bwd.launches}
+    train_launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not l1s[-1] < l1s[0]:
         raise AssertionError(f"L1 did not fall: {l1s}")
@@ -715,26 +1216,47 @@ def main() -> int:
         k2_plain_ms = plain_vjp_all_tiles_ms(fs_t, bin_t, gx_t, g_t,
                                              cfg.chunk)
     train_stages["k2_alone"] = k2_ms
+    # the same step's stages on the dense route (K3/K4 and the pair gather)
+    tcfg_dense = dataclasses.replace(
+        tcfg, raster=dataclasses.replace(cfg, use_workqueue=False))
+    train_stages_dense = train_stage_ms(state, cam_t, gt, tcfg_dense,
+                                        scheds[-1])
     bound2 = k2_bound(fs_t, bin_t, state_t, records, int(n_reduce))
+    bound1_t = fwd_bound(state_t, fs_t.numel() * 4
+                         + bin_t.pair_rank.numel() * 4
+                         + 2 * bin_t.tile_start.numel() * 4)
     step_mean = float(np.mean(step_ms[1:]))
     log(f"[phase 4] steps 2-10: mean {step_mean:.3f} ms per main-stage "
         f"step at 800x800 ({card}); stages (ms, each timed alone): "
-        + json.dumps(train_stages) + f"; peak memory {peak_gb:.2f} GB")
+        + json.dumps(train_stages) + f"; peak memory {peak_gb:.2f} GB; the "
+        f"same stages on the dense route: " + json.dumps(train_stages_dense))
     log(f"[phase 4] t=0.5 view: pairs {int(bin_t.num_pairs)}; K1 serving "
         f"{k1_serve_ms:.4f} ms, training mode {k1_train_ms:.4f} ms; K2 "
         f"{k2_ms:.4f} ms, plain {k2_plain_ms:.1f} ms (64-tile batches); K2 "
         f"bound: {bound2['n_eval']:.0f} evaluations, {bound2['n_blend']:.0f}"
         f" blends, {bound2['ops']:.4g} ops -> {bound2['t_ops']:.4f} ms; "
         f"{bound2['bytes']} bytes ({bound2['n_reduce']} warp sums) -> "
-        f"{bound2['t_bytes']:.4f} ms")
-    for path, counts in (("serve", serve_launches), ("train",
-                                                     train_launches)):
-        needed = ("blend_fwd",) if path == "serve" else ("blend_fwd",
-                                                         "blend_bwd")
-        for k in needed:
-            if counts[k] == 0:
+        f"{bound2['t_bytes']:.4f} ms; K1 bound on this view "
+        f"{bound1_t['bound_ms']:.4f} ms by {bound1_t['bound_by']}")
+
+    # ---- phase 5a: K3 and K4 against their plain versions, and timed ----
+    res5a = phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card)
+    del fs_t, bin_t, state_t, g_t, records, inputs
+    torch.cuda.empty_cache()
+
+    # ---- phase 5b: the Trainer at full width on the dense route ----
+    res5b = phase_5b(dev, card)
+    paths = {"serve": serve_launches, "train": train_launches,
+             "trainer": res5b["launches"]}
+    needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
+              "trainer": ("blend_dense_fwd", "blend_dense_bwd")}
+    for path, names in needed.items():
+        for k in names:
+            if paths[path][k] == 0:
                 raise AssertionError(f"{k} was not launched on the {path} "
                                      f"path")
+    by_path = lambda k: {path: c[k] for path, c in paths.items()}
+    b3, b4 = res5a["k3_bound"], res5a["k4_bound"]
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "blend_fwd", "route": "cuda",
@@ -742,31 +1264,57 @@ def main() -> int:
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
         "launches": serve_launches["blend_fwd"]
         + train_launches["blend_fwd"],
-        "launches_by_path": {"serve": serve_launches["blend_fwd"],
-                             "train": train_launches["blend_fwd"]},
+        "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], "ms": kernel_ms[0],
+        "ms_t05": k1_serve_ms, "bound_ms_t05": bound1_t["bound_ms"],
         "ms_training_mode": k1_train_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "plain_ms": plain_ms, "bound_ms": bound1["bound_ms"],
+        "bound_by": bound1["bound_by"], "library_ms": None,
         "render_ms": render_ms, "stages_ms": stages}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
         "launches": train_launches["blend_bwd"],
-        "launches_by_path": {"serve": serve_launches["blend_bwd"],
-                             "train": train_launches["blend_bwd"]},
+        "launches_by_path": by_path("blend_bwd"),
         "max_abs_err": res_k2["max_abs_err"],
         "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
         "flipped_pixels": {k: v["flipped"] for k, v in bwd_checks.items()},
         "ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bound_ms": max(bound2["t_ops"], bound2["t_bytes"]),
-        "bound_by": ("operations" if bound2["t_ops"] >= bound2["t_bytes"]
-                     else "bytes"),
+        "bound_ms": bound2["bound_ms"], "bound_by": bound2["bound_by"],
         "library_ms": None,
         "step_ms": step_ms, "train_stages_ms": train_stages,
-        "l1": l1s}]}))
+        "l1": l1s}, {
+        "name": "blend_dense_fwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/blend_fwd.cu",
+        "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:411",
+        "launches": res5b["launches"]["blend_dense_fwd"],
+        "launches_by_path": by_path("blend_dense_fwd"),
+        "max_abs_err": res5a["k3_max_abs_err"],
+        "flipped_pixels": {k: v["flipped"]
+                           for k, v in res5a["checks"].items()},
+        "ms": res5a["k3_ms"], "ms_training_mode": res5a["k3_train_ms"],
+        "plain_ms": res5a["k3_plain_ms"], "bound_ms": b3["bound_ms"],
+        "bound_by": b3["bound_by"], "library_ms": None,
+        "gather_ms": res5a["gather_ms"],
+        "gather_bwd_ms": res5a["gather_bwd_ms"],
+        "node_step_ms": res5b["node_step_ms"],
+        "main_step_ms": res5b["main_step_ms"],
+        "node_step_ms_median": res5b["node_step_ms_median"],
+        "main_step_ms_median": res5b["main_step_ms_median"],
+        "node_stages_ms": res5b["node_stages_ms"],
+        "train_stages_ms": train_stages_dense}, {
+        "name": "blend_dense_bwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/blend_bwd.cu",
+        "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:439",
+        "launches": res5b["launches"]["blend_dense_bwd"],
+        "launches_by_path": by_path("blend_dense_bwd"),
+        "max_abs_err": res5a["k4_max_abs_err"],
+        "max_norm_err": {k: v["max_norm_err"]
+                         for k, v in res5a["grads"].items()},
+        "ms": res5a["k4_ms"], "plain_ms": res5a["k4_plain_ms"],
+        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Rasterizer constants and configuration (counterpart of d2dgs_tpu/config.py).
 
 The numeric constants mirror the reference CUDA rasterizer
-(diff-surfel-rasterization config.h and auxiliary.h).  The JAX package's
-static buffer caps (``emission_cap``, ``pair_cap``, ``tile_cap``) and its
-Pallas switches have no counterpart here: the port sizes every binning
-buffer from the measured counts, and the tensors' device picks the blend
-path (CUDA kernel or plain PyTorch).
+(diff-surfel-rasterization config.h and auxiliary.h).  Of the JAX
+package's static caps only ``tile_cap`` has a counterpart: each tile blends
+at most its ``tile_cap`` nearest pairs, on both blend routes, and the
+dropped pairs are reported as ``overflow``, as in the JAX package.
+``emission_cap`` and ``pair_cap`` have none (the port sizes those buffers
+from the measured counts), nor do ``use_pallas`` and ``pallas_interpret``
+(the tensors' device picks the blend path: CUDA kernel or plain PyTorch).
 """
 from __future__ import annotations
 
@@ -30,6 +32,14 @@ class RasterConfig:
     # Pairs per step of the plain tiled blend (the CUDA kernel stages its
     # own 256-pair shared-memory batches).
     chunk: int = 64
+    # Per-tile pair cap: pairs beyond a tile's tile_cap nearest are dropped
+    # (and counted as overflow); it also sizes the dense route's
+    # [T, tile_cap, 18] pair buffer.
+    tile_cap: int = 4096
+    # The work-queue route (K1/K2: each tile reads its pairs through the
+    # sorted pair ranks) vs the dense route (K3/K4: the pairs gathered into
+    # a [T, tile_cap, 18] buffer first).
+    use_workqueue: bool = True
     # Bin a pair only when the splat's exact visibility circle touches
     # the tile's pixel-center rect (ops/binning.visibility_circles); the
     # cull is output-invariant.

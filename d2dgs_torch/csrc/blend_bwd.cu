@@ -1,19 +1,31 @@
 // Backward of the surfel blend over depth-sorted per-tile pair lists
 // (Hopper, sm_90a).
 //
-// Replaces the TPU kernel `_bwd_wq_kernel` of
-// d2dgs_tpu/ops/pallas/blend_tpu.py (launcher `_bwd_wq_call`), which walks
-// each tile's work-queue chunks in reverse, rebuilds every chunk's
-// pre-state from saved carry rows and applies `_chunk_bwd` and
-// `_resp_manual_vjp`.  This kernel computes the same per-pair feature
-// gradients, summed over pixels and tiles; the plain PyTorch version is
-// `blend_tiles_plain_vjp` in d2dgs_torch/ops/cuda/blend.py (autograd
-// through `blend_tiles_plain`).
+// Two entry points share one kernel template over where a tile's rows
+// come from (the row policies of blend_fwd.cu):
+//  * K2, `blend_bwd_launch`, replaces the TPU kernel `_bwd_wq_kernel` of
+//    d2dgs_tpu/ops/pallas/blend_tpu.py (launcher `_bwd_wq_call`), which
+//    walks each tile's work-queue chunks in reverse, rebuilds every chunk's
+//    pre-state from saved carry rows and applies `_chunk_bwd` and
+//    `_resp_manual_vjp`.  Tile t's i-th pair is the sorted row
+//    `pair_rank[tile_start[t] + i]`, and its gradient is summed into that
+//    row of d_feats [N, NFEAT] over pixels and tiles; the plain PyTorch
+//    version is `blend_tiles_plain_vjp` in d2dgs_torch/ops/cuda/blend.py.
+//  * K4, `blend_dense_bwd_launch`, replaces `_bwd_kernel` (launcher
+//    `_bwd_call`, the VJP of the dense (tile, chunk) grid).  Tile t's i-th
+//    pair is row t * tile_cap + i of gdata and of d_gdata [T, tile_cap,
+//    NFEAT]; that row belongs to one CTA, so there is no contention across
+//    CTAs, and rows no pixel blended (past counts[t] among them) keep the
+//    zeros the wrapper wrote.  The cross-tile sum per Gaussian is autograd's
+//    transpose of the build_gdata gather, outside the kernel, as XLA's is in
+//    the JAX package.  The plain version is `blend_dense_plain_vjp` in
+//    d2dgs_torch/ops/cuda/blend_dense.py.
+// Both compute per-pair feature gradients with the same arithmetic.
 //
 // Shape: one CTA per 16x16 tile, one thread per pixel.  The CTA walks its
-// own range [tile_start, tile_start + count) back to front, from the last
-// blended pair of its slowest pixel, staging 256-pair batches of feature
-// rows in shared memory as the forward does.  Each pixel re-evaluates the
+// own rows back to front, from the last blended pair of its slowest pixel,
+// staging 256-pair batches of feature rows in shared memory as the forward
+// does.  Each pixel re-evaluates the
 // ray-splat response of every pair up to its own last blended pair (the
 // same operations in the same order as blend_fwd.cu, so the same alpha and
 // the same skip decisions), and for each blended pair:
@@ -30,14 +42,19 @@
 //   * applies the response adjoint of `_resp_manual_vjp` (cross-product
 //     and homogeneous-division chain).
 // The 18 gradients of a pair are summed over the warp with shuffles and
-// added to d_feats[pair_rank] with one atomicAdd per warp and feature;
-// that replaces the TPU's scatter-add transpose of the pair gather.  A
-// warp in which no pixel blended the pair skips the sum.
+// added to the pair's output row with one atomicAdd per warp and feature
+// (K2: the depth-ordered row, summed over tiles, which replaces the TPU's
+// scatter-add transpose of the pair gather; K4: the tile's own row, summed
+// over the CTA's 8 warps).  A warp in which no pixel blended the pair skips
+// the sum.
 //
-// What bounds it: operations, as the forward (each evaluated pair-pixel
-// repeats the forward's response, each blended one adds ~150 float32
-// operations of adjoint); the bytes are the feature rows, the pair ranks,
-// the saved rows and cotangents per pixel, and the atomics.
+// What bounds it on this card: operations, as the forward (each evaluated
+// pair-pixel repeats the forward's response, each blended one adds ~150
+// float32 operations of adjoint); the bytes are the feature rows, the pair
+// ranks (K2), the saved rows and cotangents per pixel, and the atomics.  K4
+// also has its [T, tile_cap, NFEAT] output, zeroed by the wrapper.  The
+// design keeps every running sum in registers and reads each feature row
+// from device memory once per tile (256-row shared-memory batches).
 //
 // The cotangents of the done, final dist1, final dist2 and counter rows
 // are taken as zero, as the TPU kernel does (nothing downstream reads
@@ -68,18 +85,34 @@ constexpr float FAR_PLANE = 100.0f;
 constexpr float FAR_X_NEAR = 20.0f;        // FAR_PLANE * NEAR_PLANE
 constexpr float FAR_MINUS_NEAR = 99.8f;    // FAR_PLANE - NEAR_PLANE
 
+// Row policies, as in blend_fwd.cu: `base(t)` once per tile, then
+// `row(base, i)` is the row of the tile's i-th pair in the feature and
+// gradient arrays.
+struct RankedRows {            // K2: sorted features through pair ranks
+  const int* pair_rank;    // [B]
+  const int* tile_start;   // [T]
+  __device__ int base(int t) const { return tile_start[t]; }
+  __device__ int row(int b, int i) const { return pair_rank[b + i]; }
+};
+
+struct DenseRows {             // K4: the tile's own slab [tile_cap, NFEAT]
+  int cap;                 // tile_cap
+  __device__ int base(int t) const { return t * cap; }
+  __device__ int row(int b, int i) const { return b + i; }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(PIX)
-blend_bwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
-                 const int* __restrict__ pair_rank,    // [B]
-                 const int* __restrict__ tile_start,   // [T]
+blend_bwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
+                 Rows rows_of,
                  int grid_x,
                  const float* __restrict__ state,      // [T, NSTATE, PIX]
                  const int* __restrict__ records,      // [T, NREC, PIX]
                  const float* __restrict__ g_state,    // [T, NSTATE, PIX]
-                 float* __restrict__ d_feats,          // [N, NFEAT], zeroed
+                 float* __restrict__ d_feats,          // like feats, zeroed
                  unsigned long long* __restrict__ n_reduce)
 {
-  __shared__ int s_rank[BATCH];
+  __shared__ int s_row[BATCH];
   __shared__ float s_feat[BATCH * NFEAT];
   __shared__ int s_walk;
   __shared__ unsigned int s_reduce;
@@ -89,7 +122,7 @@ blend_bwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
   const int lane = tid & 31;
   const float px = (float)((tile % grid_x) * TILE + (tid % TILE)) + 0.5f;
   const float py = (float)((tile / grid_x) * TILE + (tid / TILE)) + 0.5f;
-  const int start = tile_start[tile];
+  const int start = rows_of.base(tile);
   const int* rec = records + (size_t)tile * NREC * PIX + tid;
   const int last = rec[0];
   const int med = rec[PIX];
@@ -122,11 +155,11 @@ blend_bwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
     const int b0 = max(0, b_end - BATCH);
     const int nb = b_end - b0;
     __syncthreads();               // the previous batch is consumed
-    if (tid < nb) s_rank[tid] = pair_rank[start + b0 + tid];
+    if (tid < nb) s_row[tid] = rows_of.row(start, b0 + tid);
     __syncthreads();
     for (int k = tid; k < nb * NFEAT; k += PIX) {
       const int r = k / NFEAT;
-      s_feat[k] = feats[(size_t)s_rank[r] * NFEAT + (k - r * NFEAT)];
+      s_feat[k] = feats[(size_t)s_row[r] * NFEAT + (k - r * NFEAT)];
     }
     __syncthreads();
 
@@ -244,7 +277,7 @@ blend_bwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
           for (int o = 16; o > 0; o >>= 1)
             v += __shfl_down_sync(FULL_MASK, v, o);
           if (lane == 0)
-            atomicAdd(d_feats + (size_t)s_rank[j] * NFEAT + q, v);
+            atomicAdd(d_feats + (size_t)s_row[j] * NFEAT + q, v);
         }
         if (lane == 0 && n_reduce != nullptr) atomicAdd(&s_reduce, 1u);
       }
@@ -266,8 +299,21 @@ extern "C" int blend_bwd_launch(const float* feats, const int* pair_rank,
                                 float* d_feats, unsigned long long* n_reduce,
                                 void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_bwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-      feats, pair_rank, tile_start, grid_x, state, records, g_state, d_feats,
+  blend_bwd_kernel<RankedRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+      feats, RankedRows{pair_rank, tile_start}, grid_x, state, records,
+      g_state, d_feats, n_reduce);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int blend_dense_bwd_launch(const float* gdata, int tile_cap,
+                                      int num_tiles, int grid_x,
+                                      const float* state, const int* records,
+                                      const float* g_state, float* d_gdata,
+                                      unsigned long long* n_reduce,
+                                      void* stream) {
+  if (num_tiles <= 0) return 0;
+  blend_bwd_kernel<DenseRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+      gdata, DenseRows{tile_cap}, grid_x, state, records, g_state, d_gdata,
       n_reduce);
   return (int)cudaGetLastError();
 }

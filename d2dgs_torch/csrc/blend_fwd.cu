@@ -1,24 +1,36 @@
 // Forward surfel blend over depth-sorted per-tile pair lists (Hopper, sm_90a).
 //
-// Replaces the TPU kernel `_fwd_wq_kernel` of
-// d2dgs_tpu/ops/pallas/blend_tpu.py (with its launcher `_fwd_wq_call` and
-// the work queue `build_work_queue` that fed it).  It computes the same
-// per-tile state rows as that kernel's `_chunk_step`; the plain PyTorch
-// version is `blend_tiles_plain` in d2dgs_torch/ops/tiled_raster.py.
+// Two entry points share one kernel template over where a tile's rows come
+// from (the row policy):
+//  * K1, `blend_fwd_launch`, replaces the TPU kernel `_fwd_wq_kernel` of
+//    d2dgs_tpu/ops/pallas/blend_tpu.py (with its launcher `_fwd_wq_call` and
+//    the work queue `build_work_queue` that fed it): tile t's i-th pair is
+//    the sorted feature row `feats[pair_rank[tile_start[t] + i]]`
+//    (`RankedRows`); the plain PyTorch version is `blend_tiles_plain` in
+//    d2dgs_torch/ops/tiled_raster.py;
+//  * K3, `blend_dense_fwd_launch`, replaces `_fwd_kernel` (launcher
+//    `_fwd_call`, the dense (tile, chunk) grid fed by `build_gdata`): tile
+//    t's i-th pair is row `gdata[t, i]` of the dense [T, tile_cap, 18]
+//    buffer (`DenseRows`), contiguous, with no rank indirection; the plain
+//    PyTorch version is `blend_dense_plain` in
+//    d2dgs_torch/ops/cuda/blend_dense.py.
+// Both compute the same per-tile state rows as the TPU kernels'
+// `_chunk_step`, with the same arithmetic, so the two routes make the same
+// alpha, near-plane and cutoff decisions bit for bit.
 //
 // What bounds it on this card: operations.  Each (pair, pixel) evaluation
 // is ~50 float32 operations (ray-splat intersection, low-pass filter, exp)
 // plus ~35 more when the pair is blended, against 72 bytes of features per
 // pair that are shared by the tile's 256 pixels, so the kernel sits far
 // above the card's float32 ridge point (67 TFLOP/s over 3.35 TB/s, about
-// 20 operations per byte).  Its bytes are the depth-sorted feature rows,
-// the pair ranks and the 16 state rows written per pixel.
+// 20 operations per byte).  Its bytes are the feature rows, the pair ranks
+// (K1) and the 16 state rows written per pixel.
 //
 // What the design does about it:
 //  * one CTA per 16x16 tile, one thread per pixel: all 14 accumulators live
 //    in registers for the whole walk and are written once, coalesced;
-//  * the CTA walks its own range [tile_start, tile_start + tile_count) of
-//    the sorted pair list, so the TPU work queue is not needed;
+//  * the CTA walks its own rows [0, count) of the tile, so neither the TPU
+//    work queue nor the TPU's per-chunk carries are needed;
 //  * batches of 256 pair feature rows are staged in shared memory by the
 //    whole CTA (each row read from device memory once per tile, not once
 //    per pixel; neighbouring threads read neighbouring words of a row);
@@ -67,24 +79,42 @@ constexpr float FAR_PLANE = 100.0f;
 constexpr float FAR_X_NEAR = 20.0f;        // FAR_PLANE * NEAR_PLANE
 constexpr float FAR_MINUS_NEAR = 99.8f;    // FAR_PLANE - NEAR_PLANE
 
+// Row policies: `base(t)` once per tile, then `row(base, i)` is the index
+// in `feats` of the tile's i-th pair in depth order; `count(t)` its pairs.
+struct RankedRows {            // K1: sorted features through pair ranks
+  const int* pair_rank;    // [B]
+  const int* tile_start;   // [T]
+  const int* tile_count;   // [T], clamped at tile_cap
+  __device__ int base(int t) const { return tile_start[t]; }
+  __device__ int count(int t) const { return tile_count[t]; }
+  __device__ int row(int b, int i) const { return pair_rank[b + i]; }
+};
+
+struct DenseRows {             // K3: the tile's own slab [tile_cap, NFEAT]
+  const int* counts;       // [T] = min(tile_count, tile_cap)
+  int cap;                 // tile_cap
+  __device__ int base(int t) const { return t * cap; }
+  __device__ int count(int t) const { return counts[t]; }
+  __device__ int row(int b, int i) const { return b + i; }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(PIX)
-blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
-                 const int* __restrict__ pair_rank,    // [B]
-                 const int* __restrict__ tile_start,   // [T]
-                 const int* __restrict__ tile_count,   // [T]
+blend_fwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
+                 Rows rows_of,
                  int grid_x,
                  float* __restrict__ state,            // [T, NSTATE, PIX]
                  int* __restrict__ records)            // [T, NREC, PIX] or null
 {
-  __shared__ int s_rank[BATCH];
+  __shared__ int s_row[BATCH];
   __shared__ float s_feat[BATCH * NFEAT];
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
   const float px = (float)((tile % grid_x) * TILE + (tid % TILE)) + 0.5f;
   const float py = (float)((tile / grid_x) * TILE + (tid / TILE)) + 0.5f;
-  const int start = tile_start[tile];
-  const int count = tile_count[tile];
+  const int start = rows_of.base(tile);
+  const int count = rows_of.count(tile);
 
   float T = 1.0f;
   bool done = false;
@@ -99,11 +129,11 @@ blend_fwd_kernel(const float* __restrict__ feats,      // [N, NFEAT] depth order
     // protects the shared batch of the previous iteration
     if (__syncthreads_count(!done) == 0) break;
     const int nb = min(BATCH, count - b0);
-    if (tid < nb) s_rank[tid] = pair_rank[start + b0 + tid];
+    if (tid < nb) s_row[tid] = rows_of.row(start, b0 + tid);
     __syncthreads();
     for (int k = tid; k < nb * NFEAT; k += PIX) {
       const int r = k / NFEAT;
-      s_feat[k] = feats[(size_t)s_rank[r] * NFEAT + (k - r * NFEAT)];
+      s_feat[k] = feats[(size_t)s_row[r] * NFEAT + (k - r * NFEAT)];
     }
     __syncthreads();
     if (done) continue;
@@ -188,8 +218,19 @@ extern "C" int blend_fwd_launch(const float* feats, const int* pair_rank,
                                 int num_tiles, int grid_x, float* state,
                                 int* records, void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_fwd_kernel<<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-      feats, pair_rank, tile_start, tile_count, grid_x, state, records);
+  blend_fwd_kernel<RankedRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+      feats, RankedRows{pair_rank, tile_start, tile_count}, grid_x, state,
+      records);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int blend_dense_fwd_launch(const float* gdata, const int* counts,
+                                      int tile_cap, int num_tiles, int grid_x,
+                                      float* state, int* records,
+                                      void* stream) {
+  if (num_tiles <= 0) return 0;
+  blend_fwd_kernel<DenseRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
+      gdata, DenseRows{counts, tile_cap}, grid_x, state, records);
   return (int)cudaGetLastError();
 }
 

@@ -77,6 +77,12 @@ class GaussianParams(nn.Module):
             return torch.sigmoid(self.feature[..., -1:])
         return torch.ones_like(self.xyz[..., :1])
 
+    def oneup_sh_degree(self) -> "GaussianParams":
+        """Raise the active SH degree by one, up to the maximum; in place."""
+        self.active_sh_degree = min(self.active_sh_degree + 1,
+                                    self.max_sh_degree)
+        return self
+
 
 def apply_deform(params: GaussianParams, d_xyz=0.0, d_rotation=0.0,
                  d_scaling=0.0, d_opacity=None, d_color=None):

@@ -6,8 +6,10 @@ logit.  A Gaussian's deformation is the KNN(K=3)-weighted blend of the
 per-node MLP deltas, gated by its motion mask; the KNN runs in
 (xyz + hyper) space with Gaussian-kernel weights exp(-d^2 / 2r^2) * w_node.
 Nodes are capacity-padded with an ``alive`` mask (dead nodes are at
-+inf distance).  Only linear-blend skinning (plain and local-frame) is
-ported; dual-quaternion blending waits (ROADMAP.md).
++inf distance); node densification (``densify_nodes``) adds and prunes
+nodes slot for slot as the JAX package does.  Only linear-blend skinning
+(plain and local-frame) is ported; dual-quaternion blending waits
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 from ..utils.general import farthest_point_sample, resolve_device
 from ..utils.quaternion import quat_to_rotmat
 from .deform_mlp import MLPConfig, init_mlp, mlp_forward
+from .densify import free_slot_lookup
 
 ROT_BIAS = (1.0, 0.0, 0.0, 0.0)
 
@@ -30,6 +33,9 @@ class NodeConfig:
     hyper_dim: int = 8
     d_rot_as_res: bool = True
     with_node_weight: bool = True
+    # the main stage's ARAP weight follows lambda_arap_schedule when on
+    with_arap_loss: bool = False
+    is_scene_static: bool = False
     # "lbs": linear blend of per-node transforms; "dqb" (dual-quaternion
     # blend) is not ported yet
     skinning: str = "lbs"
@@ -38,6 +44,14 @@ class NodeConfig:
     # memberships differ from the float32 selection)
     exact_knn: bool = False
     mlp: MLPConfig = MLPConfig()
+
+    @property
+    def lambda_arap_schedule(self):
+        """(landmarks, steps) of the ARAP weight (time_utils.py:790-795)."""
+        if self.with_arap_loss and not self.is_scene_static:
+            return ([1e-4, 1e-4, 1e-5, 1e-5, 0],
+                    [0, 5000, 10000, 20000, 20001])
+        return ([0], [0])
 
 
 class NodeParams(nn.Module):
@@ -239,3 +253,71 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
     if cfg.mlp.pred_color and attrs["d_color"] is not None:
         out["d_color"] = rest[ri] * motion_mask
     return out
+
+
+# ----------------------------------------------------------------------
+# Node densification (time_utils.py:1269-1386) under a fixed capacity
+# ----------------------------------------------------------------------
+
+@torch.no_grad()
+def cal_node_importance(params: NodeParams, cfg: NodeConfig, x: torch.Tensor,
+                        weights: torch.Tensor, feature: torch.Tensor | None):
+    """Importance voting: each Gaussian adds its weighted influence to its
+    K nearest nodes.  Returns (importance [M], avg_x [M, 3+hyper],
+    edge_count [M])."""
+    m = params.nodes.shape[0]
+    xh = x
+    if cfg.hyper_dim > 0 and feature is not None:
+        xh = torch.cat([x, feature[..., :cfg.hyper_dim]], dim=-1)
+    nn_weight, _, nn_idx = cal_nn_weight(params, cfg, x, feature)
+    flat_idx = nn_idx.reshape(-1)
+    ww = (nn_weight * weights[:, None]).reshape(-1)
+    zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                       device=x.device)
+    importance = zeros(m).index_add_(0, flat_idx, ww)
+    edge_count = zeros(m).index_add_(0, flat_idx, nn_weight.reshape(-1))
+    dim = xh.shape[-1]
+    contrib = ww[:, None] * xh[:, None, :].expand(
+        *nn_weight.shape, dim).reshape(-1, dim)
+    avg_x = zeros(m, dim).index_add_(0, flat_idx, contrib)
+    avg_x = avg_x / torch.clamp_min(importance[:, None], 1e-12)
+    importance = importance / (edge_count + 1e-7)
+    return importance, avg_x, edge_count
+
+
+@torch.no_grad()
+def densify_nodes(params: NodeParams, cfg: NodeConfig, mu: dict, nu: dict,
+                  x: torch.Tensor, x_grad: torch.Tensor,
+                  feature: torch.Tensor | None, max_grad: float,
+                  alive_gaussians: torch.Tensor) -> dict:
+    """Add a node at the importance-weighted mean of the Gaussians bound to
+    each node whose importance exceeds ``max_grad``, and prune nodes no
+    Gaussian binds to (time_utils.py:1286-1386).  Updates ``params`` and
+    the Adam moment dicts ``mu``/``nu`` (keys nodes, node_radius,
+    node_weight) in place; returns the info dict of 0-d counts (added,
+    pruned)."""
+    g = torch.nan_to_num(torch.linalg.vector_norm(x_grad, dim=-1))
+    g = torch.where(alive_gaussians, g, 0.0)
+    importance, avg_x, edge_count = cal_node_importance(
+        params, cfg, x, g, feature)
+    sel = params.alive & (importance > max_grad) & torch.all(
+        torch.isfinite(avg_x), dim=-1)
+    prune = params.alive & (edge_count == 0.0)
+    alive = params.alive & ~prune
+
+    m = params.nodes.shape[0]
+    inv, num_free = free_slot_lookup(alive)
+    sel_rank = torch.where(sel, torch.cumsum(sel.to(torch.int64), 0) - 1, m)
+    dest = torch.where(sel & (sel_rank < num_free),
+                       inv[torch.clamp(sel_rank, 0, m - 1)], m)
+    ok = dest < m
+    # sources are selected (live, bound) nodes, destinations free slots
+    params.nodes[dest[ok]] = avg_x[ok]
+    params.node_radius[dest[ok]] = params.node_radius[ok]
+    params.node_weight[dest[ok]] = params.node_weight[ok]
+    alive[dest[ok]] = True
+    params.alive.copy_(alive)
+    for moments in (mu, nu):
+        for v in moments.values():
+            v[dest[ok]] = 0.0
+    return dict(added=torch.sum(ok), pruned=torch.sum(prune))

@@ -1,24 +1,71 @@
 """Deformation-field regularizers (counterpart of
-d2dgs_tpu/models/regularizers.py): the ARAP term of the main stage.
+d2dgs_tpu/models/regularizers.py): ARAP, elastic and acceleration terms,
+and the landmark loss-weight schedule.
 
 Re-derivations of utils/deform_utils.py (cal_connectivity_from_points,
-estimate_rotation, cal_arap_error) and the loss entry in
-utils/time_utils.py:1080-1089.  Variable-length edge lists are dense
+estimate_rotation, cal_arap_error) and the loss entries in
+utils/time_utils.py:1080-1131.  Variable-length edge lists are dense
 [M, K] neighbour tables with zero weights for dropped edges.  The random
 draws (the time jitter, the sample times and, above ``sample_num`` nodes,
-the Gumbel keys of the node sample) come from a ``torch.Generator``,
-drawn once per term into ``ArapDraws`` (``arap_draws``); tests fill them
-from the JAX package's draws instead.  ``elastic_loss`` and ``acc_loss``
-belong to the node stage and are not ported yet (ROADMAP.md).
+the Gumbel keys of the ARAP node sample) come from a ``torch.Generator``,
+drawn once per term into ``ArapDraws`` (``arap_draws``) or ``TimeDraws``
+(``time_draws``); tests fill them from the JAX package's draws instead.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops.knn import knn
-from .nodes import NodeConfig, NodeParams, node_deform
+from .nodes import NodeConfig, NodeParams, cal_nn_weight, node_deform
+
+
+def landmark_interpolate(landmarks, steps, step, interpolation="log"):
+    """Piecewise schedule of loss weights (time_utils.py:485-503), on the
+    host in Python floats."""
+    stage = int((step >= np.array(steps)).sum())
+    if stage == len(steps):
+        return max(0, landmarks[-1])
+    if stage == 0:
+        return 0
+    ldm1, ldm2 = landmarks[stage - 1], landmarks[stage]
+    if ldm2 <= 0:
+        return 0
+    s1, s2 = steps[stage - 1], steps[stage]
+    ratio = (step - s1) / (s2 - s1)
+    if interpolation == "log":
+        return float(np.exp(np.log(ldm1) * (1 - ratio)
+                            + np.log(ldm2) * ratio))
+    return float(ldm1 * (1 - ratio) + ldm2 * ratio)
+
+
+def _safe_norm(x, dim=-1, eps=1e-20):
+    """||x|| with a finite gradient at 0."""
+    return torch.sqrt(torch.sum(x * x, dim=dim) + eps)
+
+
+class TimeDraws(NamedTuple):
+    u_t: torch.Tensor       # 0-d uniform: the time (or its jitter)
+    u_samp: torch.Tensor    # [t_samp_num] uniforms: sample times
+
+
+def time_draws(generator: torch.Generator | None,
+               t_samp_num: int = 0) -> TimeDraws:
+    """Draw an elastic (``t_samp_num`` 8) or acceleration (0) term's
+    random numbers on the CPU from ``generator``."""
+    return TimeDraws(torch.rand((), generator=generator),
+                     torch.rand((t_samp_num,), generator=generator))
+
+
+def _jittered_time(u_t, t, delta_t, like: torch.Tensor):
+    """The term's time: ``u_t``, or ``t`` jittered by delta_t (u_t - 0.5);
+    on the device and in the type of ``like``."""
+    u_t = u_t.to(like)
+    if t is None:
+        return u_t
+    return torch.as_tensor(t).to(like).reshape(()) + delta_t * (u_t - 0.5)
 
 
 class ArapDraws(NamedTuple):
@@ -112,13 +159,8 @@ def arap_loss(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
     ``t_samp_num`` and ``sample_num``."""
     m = params.nodes.shape[0]
     dev = params.nodes.device
-    u_t = draws.u_t.to(dev, torch.float32)
-    if t is None:
-        t = u_t
-    else:
-        t = torch.as_tensor(t, dtype=torch.float32, device=dev).reshape(()) \
-            + delta_t * (u_t - 0.5)
-    t_samp = draws.u_samp.to(dev, torch.float32) * delta_t + t \
+    t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
+    t_samp = draws.u_samp.to(params.nodes) * delta_t + t \
         - 0.5 * delta_t
     tt = t_samp[None, :, None].expand(m, t_samp_num, 1)
     d_xyz = node_deform(params, cfg, tt)["d_xyz"]           # [M,T,3]
@@ -138,3 +180,48 @@ def arap_loss(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
             params.alive, 0.0, float("-inf"))
         sample_idx = torch.topk(g, sample_num).indices
     return arap_energy(nodes_seq, nn_idx, weight, sample_idx)
+
+
+def elastic_loss(params: NodeParams, cfg: NodeConfig, draws: TimeDraws,
+                 t=None, delta_t=0.005, K: int = 2,
+                 t_samp_num: int = 8) -> torch.Tensor:
+    """Edge-length variance over a short time window
+    (time_utils.py:1091-1108).  ``draws``: from ``time_draws`` with the
+    same ``t_samp_num``."""
+    m = params.nodes.shape[0]
+    t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
+    t_samp = draws.u_samp.to(params.nodes) * delta_t + t \
+        - 0.5 * delta_t
+    tt = t_samp[None, :, None].expand(m, t_samp_num, 1)
+    d_xyz = node_deform(params, cfg, tt)["d_xyz"]
+    nodes_t = params.nodes[:, None, :3].detach() + d_xyz     # [M,T,3]
+    xyz = params.nodes[:, :3].detach()
+    nn_weight, _, nn_idx = cal_nn_weight(params, cfg, xyz,
+                                         params.nodes[:, 3:], K=K + 1)
+    nn_weight, nn_idx = nn_weight[:, 1:], nn_idx[:, 1:]     # drop self
+    edge_t = _safe_norm(nodes_t[nn_idx] - nodes_t[:, None])  # [M,K,T]
+    # centred two-pass variance, as jnp.var: the edge lengths vary by
+    # ~1e-3 of their size over the window, and torch.var's backward loses
+    # that difference (its float32 warp-head gradient was 6e-4 of the
+    # largest entry from float64, against 2e-5 this way)
+    dev_t = edge_t - torch.mean(edge_t, dim=2, keepdim=True)
+    var = torch.sum(dev_t * dev_t, dim=2) / (t_samp_num - 1)
+    var = var / (var.detach() + 1e-5)
+    per_node = torch.sum(var * nn_weight, dim=1)
+    return torch.mean(torch.where(params.alive, per_node, 0.0))
+
+
+def acc_loss(params: NodeParams, cfg: NodeConfig, draws: TimeDraws,
+             t=None, delta_t=0.005) -> torch.Tensor:
+    """Second finite difference of the node trajectories
+    (time_utils.py:1110-1120).  ``draws``: from ``time_draws`` (only
+    ``u_t`` is read)."""
+    m = params.nodes.shape[0]
+    t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
+    ts = torch.stack([t - delta_t, t, t + delta_t])
+    tt = ts[None, :, None].expand(m, 3, 1)
+    d_xyz = node_deform(params, cfg, tt)["d_xyz"]
+    nodes_t = params.nodes[:, None, :3].detach() + d_xyz
+    acc = _safe_norm(nodes_t[:, 0] + nodes_t[:, 2] - 2 * nodes_t[:, 1])
+    acc = acc / (acc.detach() + 1e-5)
+    return torch.mean(torch.where(params.alive, acc, 0.0))

@@ -8,7 +8,8 @@ blends every tile's depth-sorted pair list into the state rows
 PyTorch version is ``blend_tiles_plain``.  K2 replaces
 ``_bwd_wq_kernel``: from K1's state and per-pixel records it computes the
 gradient of the 18 sorted feature columns; its plain PyTorch version is
-``blend_tiles_plain_vjp`` below.
+``blend_tiles_plain_vjp`` below.  The same two libraries also hold K3
+and K4, the dense route's entry points (wrapped in blend_dense.py).
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ def _lib() -> ctypes.CDLL:
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
     lib.blend_fwd_launch.restype = ctypes.c_int
+    lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    lib.blend_dense_fwd_launch.restype = ctypes.c_int
     lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -49,6 +53,9 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.blend_bwd_launch.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     lib.blend_bwd_launch.restype = ctypes.c_int
+    lib.blend_dense_bwd_launch.argtypes = [ctypes.c_void_p] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+    lib.blend_dense_bwd_launch.restype = ctypes.c_int
     lib.blend_bwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_bwd_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,219 @@
+"""The dense blend route: ``build_gdata``, the wrappers of K3
+(``csrc/blend_fwd.cu`` ``blend_dense_fwd_launch``) and K4
+(``csrc/blend_bwd.cu`` ``blend_dense_bwd_launch``), ``BlendTilesDense``,
+the autograd function that pairs them, and their plain PyTorch versions
+(counterpart of d2dgs_tpu/ops/pallas/blend_tpu.py:842-884).
+
+K3 replaces ``_fwd_kernel``: tile t blends rows [0, counts[t]) of its own
+slab of the dense pair buffer gdata [T, tile_cap, NFEAT] into the state
+rows [T, NSTATE, PIX].  K4 replaces ``_bwd_kernel``: the gradient of those
+state rows in gdata, [T, tile_cap, NFEAT], zero past counts[t].  The sum
+per Gaussian over its tiles is autograd's transpose of the gather in
+``build_gdata``, as XLA's is in the JAX package.  K3/K4 share their device
+code with K1/K2, so both routes make the same decisions bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..binning import Binning
+from ..tiled_raster import NFEAT, NSTATE, PIX, blend_walk
+from .blend import DEAD_ROWS, NREC, _check, _check_rows, _lib, _lib_bwd
+
+
+def build_gdata(feats: torch.Tensor, binning: Binning, tile_cap: int):
+    """Gather per-pair features into the dense [T, tile_cap, NFEAT] buffer
+    (blend_tpu.py:842-860): row i of tile t is the tile's i-th pair in
+    depth order, zero past the tile's count.  feats: [N, NFEAT] per
+    Gaussian, original index space.  Returns (gdata, counts [T] int32 =
+    min(tile_count, tile_cap)).  Differentiable in ``feats``: the gather's
+    transpose sums each Gaussian's pair gradients over its tiles.
+
+    The values are those of the JAX package's masked [T, tile_cap] gather;
+    here the kept pairs are written into a zero buffer instead, so the
+    transpose reads back only those rows (the masked gather's transpose
+    would sum T * tile_cap rows, nearly all of them zero into one row).
+    The output stays connected to ``feats`` when no pair is binned."""
+    dev = feats.device
+    num_tiles = binning.tile_count.shape[0]
+    count = binning.tile_count.long()
+    # (tile, position in the tile) of every binned pair, tile by tile
+    tile_of = torch.repeat_interleave(torch.arange(num_tiles, device=dev),
+                                      count)
+    local = (torch.arange(tile_of.shape[0], device=dev)
+             - (torch.cumsum(count, 0) - count)[tile_of])
+    keep = local < tile_cap
+    tile_of, local = tile_of[keep], local[keep]
+    dst = tile_of * tile_cap + local
+    src = binning.tile_start.long()[tile_of] + local
+    gid = binning.order.long()[binning.pair_rank.long()[src]]
+    g = feats.new_zeros((num_tiles * tile_cap, NFEAT)).index_put(
+        (dst,), feats[gid])
+    counts = torch.clamp_max(binning.tile_count, tile_cap).to(torch.int32)
+    return g.view(num_tiles, tile_cap, NFEAT), counts
+
+
+def blend_dense_plain(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
+                      chunk: int = 64,
+                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K3: blend rows [0, counts[t]) of each tile's slab
+    of gdata [T, cap, NFEAT], ``chunk`` rows at a time.  ``tile_ids``
+    (optional) gives the grid index of each of the T tiles when they are a
+    subset of the grid.  Returns the state rows [T, NSTATE, PIX]."""
+    dev = gdata.device
+    cap = gdata.shape[1]
+    if tile_ids is None:
+        tile_ids = torch.arange(gdata.shape[0], device=dev)
+    lane = torch.arange(chunk, device=dev)
+
+    def chunk_rows(c0):
+        return gdata[:, torch.clamp_max(c0 + lane, cap - 1)]
+    return blend_walk(chunk_rows, counts, grid_x, chunk, tile_ids)
+
+
+def blend_dense_plain_vjp(gdata: torch.Tensor, counts: torch.Tensor,
+                          grid_x: int, g_state: torch.Tensor,
+                          tiles: torch.Tensor | None = None,
+                          chunk: int = 64) -> torch.Tensor:
+    """Plain version of K4: the gradient of <state, g_state> in gdata
+    [T, cap, NFEAT], by autograd through ``blend_dense_plain``.  The
+    cotangents of ``DEAD_ROWS`` are taken as zero, as K4 does.  ``tiles``
+    (optional, int64 tile indices) restricts the blend to those tiles, at
+    their true pixel coordinates; the other tiles' rows are zero."""
+    g = g_state.clone()
+    g[:, list(DEAD_ROWS)] = 0.0
+    sub, cnt = gdata, counts
+    if tiles is not None:
+        sub, cnt, g = gdata[tiles], counts[tiles], g[tiles]
+    with torch.enable_grad():
+        f = sub.detach().requires_grad_()
+        state = blend_dense_plain(f, cnt, grid_x, chunk=chunk, tile_ids=tiles)
+        if not state.requires_grad:       # no pairs in these tiles
+            d = torch.zeros_like(f)
+        else:
+            d, = torch.autograd.grad(state, f, g)
+    if tiles is None:
+        return d
+    out = torch.zeros_like(gdata)
+    out[tiles] = d
+    return out
+
+
+def _check_dense(gdata, counts, grid_x):
+    """Device, type and shape checks shared by K3 and K4; returns
+    (tiles, tile_cap)."""
+    dev = gdata.device
+    _check("gdata", gdata, torch.float32, 3, dev)
+    _check("counts", counts, torch.int32, 1, dev)
+    num_tiles, cap, nfeat = gdata.shape
+    if nfeat != NFEAT:
+        raise ValueError(f"gdata must be [T, tile_cap, {NFEAT}], got "
+                         f"{tuple(gdata.shape)}")
+    if counts.shape[0] != num_tiles or grid_x <= 0 \
+            or num_tiles % grid_x != 0:
+        raise ValueError(f"gdata {tuple(gdata.shape)} and counts "
+                         f"{tuple(counts.shape)} do not form a grid "
+                         f"{grid_x} tiles wide")
+    return num_tiles, cap
+
+
+def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
+                    chunk: int = 64,
+                    records: torch.Tensor | None = None) -> torch.Tensor:
+    """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
+    int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
+
+    ``records`` ([T, NREC, PIX] int32, optional) receives K3's training
+    records for K4, as K1's for K2.  On CPU tensors this is
+    ``blend_dense_plain`` and ``records`` is left as it is; on CUDA tensors
+    it launches K3 or raises."""
+    if gdata.device.type == "cpu":
+        return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
+    dev = gdata.device
+    if dev.type != "cuda":
+        raise ValueError(f"blend_dense_fwd runs on cpu or cuda, not {dev}")
+    num_tiles, cap = _check_dense(gdata, counts, grid_x)
+    if records is not None:
+        _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+    state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
+                        device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.blend_dense_fwd_launch(
+            gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x,
+            state.data_ptr(),
+            None if records is None else records.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("blend_dense_fwd kernel launch failed: "
+                           + lib.blend_fwd_error_string(err).decode())
+    blend_dense_fwd.launches += 1
+    return state
+
+
+blend_dense_fwd.launches = 0
+
+
+def blend_dense_bwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
+                    state: torch.Tensor, records: torch.Tensor,
+                    g_state: torch.Tensor, chunk: int = 64,
+                    n_reduce: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the dense blend in gdata: K3's inputs, its ``state`` and
+    ``records``, and the cotangent ``g_state`` [T, NSTATE, PIX] ->
+    d_gdata [T, cap, NFEAT] float32, zero past counts[t].
+
+    On CPU tensors this is ``blend_dense_plain_vjp`` (``state`` and
+    ``records`` unused); on CUDA tensors it launches K4 or raises.
+    ``n_reduce`` (optional int64 [1] on the card) is incremented by the
+    number of (warp, pair) sums the kernel issued, 18 atomics each."""
+    if gdata.device.type == "cpu":
+        return blend_dense_plain_vjp(gdata, counts, grid_x, g_state,
+                                     chunk=chunk)
+    dev = gdata.device
+    if dev.type != "cuda":
+        raise ValueError(f"blend_dense_bwd runs on cpu or cuda, not {dev}")
+    num_tiles, cap = _check_dense(gdata, counts, grid_x)
+    _check_rows("state", state, torch.float32, NSTATE, num_tiles, dev)
+    _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+    _check_rows("g_state", g_state, torch.float32, NSTATE, num_tiles, dev)
+    if n_reduce is not None:
+        _check("n_reduce", n_reduce, torch.int64, 1, dev)
+    d_gdata = torch.zeros_like(gdata)
+    lib = _lib_bwd()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.blend_dense_bwd_launch(
+            gdata.data_ptr(), cap, num_tiles, grid_x, state.data_ptr(),
+            records.data_ptr(), g_state.data_ptr(), d_gdata.data_ptr(),
+            None if n_reduce is None else n_reduce.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("blend_dense_bwd kernel launch failed: "
+                           + lib.blend_bwd_error_string(err).decode())
+    blend_dense_bwd.launches += 1
+    return d_gdata
+
+
+blend_dense_bwd.launches = 0
+
+
+class BlendTilesDense(torch.autograd.Function):
+    """State rows of the dense blend, differentiable in gdata: forward K3
+    in training mode, backward K4.  ``build_gdata``'s gather stays
+    outside, so autograd sums the per-pair gradients per Gaussian."""
+
+    @staticmethod
+    def forward(ctx, gdata, counts, grid_x, chunk=64):
+        records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
+                              device=gdata.device)
+        state = blend_dense_fwd(gdata, counts, grid_x, chunk=chunk,
+                                records=records)
+        ctx.save_for_backward(gdata, counts, state, records)
+        ctx.grid_x, ctx.chunk = grid_x, chunk
+        return state
+
+    @staticmethod
+    def backward(ctx, g_state):
+        gdata, counts, state, records = ctx.saved_tensors
+        d_gdata = blend_dense_bwd(gdata, counts, ctx.grid_x, state, records,
+                                  g_state.contiguous(), chunk=ctx.chunk)
+        return d_gdata, None, None, None

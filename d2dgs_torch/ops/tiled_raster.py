@@ -1,12 +1,18 @@
 """Tiled rasterizer (counterpart of d2dgs_tpu/ops/tiled_raster.py).
 
-``blend_tiles`` dispatches on the tensors' device: CUDA tensors go to the
-hand-written blend kernels (ops/cuda/blend.py: the forward alone under
-no_grad, the forward/backward pair ``BlendTiles`` when a gradient is
-wanted), CPU tensors to ``blend_tiles_plain``, the plain PyTorch port of
-the JAX package's XLA tile blend, differentiated by autograd.  Both
-return the same per-tile state rows, laid out like the TPU kernel's
-(d2dgs_tpu/ops/pallas/blend_tpu.py ROW_*).
+``blend_tiles`` takes one of two routes, as the JAX package does:
+``RasterConfig.use_workqueue`` picks the work-queue route (each tile reads
+its pairs through the sorted pair ranks; kernels K1/K2, ops/cuda/blend.py)
+or the dense route (the pairs are first gathered into a [T, tile_cap, 18]
+buffer; kernels K3/K4, ops/cuda/blend_dense.py).  On either route it
+dispatches on the tensors' device: CUDA tensors go to the hand-written
+kernels (the forward alone under no_grad, the forward/backward pair as one
+autograd function when a gradient is wanted), CPU tensors to the plain
+PyTorch versions (``blend_tiles_plain``, the port of the JAX package's XLA
+tile blend, and ``blend_dense_plain``), differentiated by autograd.  Every
+route returns the same per-tile state rows, laid out like the TPU
+kernel's (d2dgs_tpu/ops/pallas/blend_tpu.py ROW_*).  Each tile blends at
+most its ``tile_cap`` nearest pairs.
 """
 from __future__ import annotations
 
@@ -53,34 +59,23 @@ def pack_features(Tmat, center, normal, colors, opacity) -> torch.Tensor:
                       opacity[:, None]], dim=-1)
 
 
-def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
-                      tile_start: torch.Tensor, tile_count: torch.Tensor,
-                      grid_x: int, chunk: int = 64,
-                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
-    """Blend every tile's pair list in chunks (port of blend_tiles_xla).
-
-    feats_sorted: [N, NFEAT] features in depth order (feats[order]);
-    pair_rank [B], tile_start [T], tile_count [T]: int32 from
-    ``bin_gaussians``.  ``tile_ids`` (optional) gives the grid index of
-    each of the T tiles, when they are a subset of the grid (default: the
-    whole grid in order).  Returns the state rows [T, NSTATE, PIX].
-    """
-    num_tiles = tile_start.shape[0]
-    dev = feats_sorted.device
-    if tile_ids is None:
-        tile_ids = torch.arange(num_tiles, device=dev)
+def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
+               tile_ids: torch.Tensor) -> torch.Tensor:
+    """Blend each of T tiles' first ``count[t]`` pairs, ``chunk`` at a
+    time: ``chunk_rows(c0)`` gives the features [T, chunk, NFEAT] of rows
+    c0..c0+chunk-1 of every tile (any values past a tile's count);
+    ``tile_ids`` [T] the tiles' grid indices.  Returns the state rows
+    [T, NSTATE, PIX]."""
+    num_tiles = count.shape[0]
+    dev = tile_ids.device
     pix = _tile_pixels(grid_x, tile_ids)                    # [T,P,2]
     state = B.init_state((num_tiles, PIX), device=dev)
-    start = tile_start.long()
-    count = tile_count.long()
-    n_pairs = pair_rank.shape[0]
+    count = count.long()
     max_count = int(count.max()) if num_tiles else 0
     lane = torch.arange(chunk, device=dev)
     for c0 in range(0, max_count, chunk):
-        offs = start[:, None] + c0 + lane[None, :]           # [T,chunk]
         in_range = lane[None, :] < (count - c0)[:, None]
-        offs = torch.clamp(offs, 0, n_pairs - 1)
-        g = feats_sorted[pair_rank[offs].long()]             # [T,chunk,NFEAT]
+        g = chunk_rows(c0)                                   # [T,chunk,NFEAT]
         opac = torch.where(in_range, g[..., 17], 0.0)
         alpha, depth = B.pixel_responses(
             g[..., 0:9].reshape(num_tiles, chunk, 3, 3), g[..., 9:11],
@@ -93,6 +88,32 @@ def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
             state.distortion, state.med_depth, state.med_weight,
             state.n_eval, state.n_blend]
     return torch.stack(rows, dim=1)                          # [T,16,P]
+
+
+def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
+                      tile_start: torch.Tensor, tile_count: torch.Tensor,
+                      grid_x: int, chunk: int = 64,
+                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """Blend every tile's pair list in chunks (port of blend_tiles_xla).
+
+    feats_sorted: [N, NFEAT] features in depth order (feats[order]);
+    pair_rank [B], tile_start [T], tile_count [T]: int32 from
+    ``bin_gaussians`` (the count clamped at ``tile_cap`` by the caller).
+    ``tile_ids`` (optional) gives the grid index of each of the T tiles,
+    when they are a subset of the grid (default: the whole grid in
+    order).  Returns the state rows [T, NSTATE, PIX]."""
+    dev = feats_sorted.device
+    if tile_ids is None:
+        tile_ids = torch.arange(tile_start.shape[0], device=dev)
+    start = tile_start.long()
+    n_pairs = pair_rank.shape[0]
+    lane = torch.arange(chunk, device=dev)
+
+    def chunk_rows(c0):
+        offs = torch.clamp(start[:, None] + c0 + lane[None, :], 0,
+                           n_pairs - 1)
+        return feats_sorted[pair_rank[offs].long()]
+    return blend_walk(chunk_rows, tile_count, grid_x, chunk, tile_ids)
 
 
 def state_to_maps(state: torch.Tensor):
@@ -115,21 +136,28 @@ def blend_tiles(Tmat, center, normal, colors, opacity, binning: Binning,
                 grid_x: int, grid_y: int, cfg: RasterConfig):
     """Blend all tiles; per-Gaussian inputs are in ORIGINAL index space.
 
-    Returns (tile_color [T,P,3], tile_allmap [T,P,8], overflow 0-d int32,
-    always 0: the pair buffers are sized from the measured counts).
+    Returns (tile_color [T,P,3], tile_allmap [T,P,8], overflow 0-d int32:
+    the pairs dropped by the per-tile ``tile_cap``, each tile's deepest).
     """
     from .cuda.blend import BlendTiles, blend_fwd
+    from .cuda.blend_dense import BlendTilesDense, blend_dense_fwd, build_gdata
     feats = pack_features(Tmat, center, normal, colors, opacity)
-    feats_sorted = feats[binning.order.long()].contiguous()
-    args = (feats_sorted, binning.pair_rank, binning.tile_start,
-            binning.tile_count, grid_x, cfg.chunk)
-    if (feats_sorted.device.type == "cuda" and torch.is_grad_enabled()
-            and feats_sorted.requires_grad):
-        state = BlendTiles.apply(*args)
+    overflow = torch.sum(torch.clamp_min(
+        binning.tile_count - cfg.tile_cap, 0)).to(torch.int32)
+    train = (feats.device.type == "cuda" and torch.is_grad_enabled()
+             and feats.requires_grad)
+    if cfg.use_workqueue:
+        counts = torch.clamp_max(binning.tile_count, cfg.tile_cap)
+        feats_sorted = feats[binning.order.long()].contiguous()
+        args = (feats_sorted, binning.pair_rank, binning.tile_start, counts,
+                grid_x, cfg.chunk)
+        state = BlendTiles.apply(*args) if train else blend_fwd(*args)
     else:
-        state = blend_fwd(*args)
+        gdata, counts = build_gdata(feats, binning, cfg.tile_cap)
+        args = (gdata, counts, grid_x, cfg.chunk)
+        state = BlendTilesDense.apply(*args) if train \
+            else blend_dense_fwd(*args)
     tile_color, tile_allmap = state_to_maps(state)
-    overflow = torch.zeros((), dtype=torch.int32, device=feats.device)
     return tile_color, tile_allmap, overflow
 
 

@@ -4,7 +4,9 @@ reference's gaussian_renderer/__init__.py:41-219).
 Assembles deformed Gaussian parameters, evaluates SH, rasterizes, and
 post-processes the aux maps.  The work runs on the device of ``params``
 (the camera must be on the same one): CUDA tensors blend through the
-hand-written kernel, CPU tensors through its plain version.
+hand-written kernels (the work-queue or the dense route, as
+``RasterConfig.use_workqueue`` says), CPU tensors through their plain
+versions.
 
 Densification statistics: the reference's backward overwrites the
 screen-space gradient with dL_dmean2D.x = dL_dTu.z * Tw.z * (W/2).  A
@@ -37,7 +39,7 @@ class RenderOutput(NamedTuple):
     visibility: torch.Tensor   # [N] bool: radii > 0
     allmap: torch.Tensor       # [H,W,8] raw aux channels
     num_pairs: torch.Tensor    # 0-d: binned pair count (load metric)
-    overflow: torch.Tensor     # 0-d int32, always 0 (buffers sized exactly)
+    overflow: torch.Tensor     # 0-d int32: pairs dropped by tile_cap
     clamped: torch.Tensor      # 0-d int32, always 0 (emission sized exactly)
 
 

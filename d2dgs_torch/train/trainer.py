@@ -1,20 +1,23 @@
-"""Main-stage training step (counterpart of d2dgs_tpu/train/trainer.py, the
-reference's train_step, train_gui.py:215-438).
+"""Two-stage trainer (counterpart of d2dgs_tpu/train/trainer.py, the
+reference's GUI.train / train_node_rendering_step / train_step,
+train_gui.py:132-599): the step functions and the host loop ``Trainer``.
 
-One call of ``main_stage_step`` deforms the Gaussians at the camera's
-time (node warp), renders them, takes the photometric and geometric
-losses plus the node ARAP term, differentiates everything with one
-``torch.autograd.grad`` (on CUDA tensors the blend's backward is the K2
-kernel) and applies the three Adam groups.  Parameters and Adam moments
-are updated in place; the returned state holds the same modules and
-moment tensors with the new counts and densify statistics.
-
-The node pre-training stage, densify/prune, opacity reset, node
-downsampling, the ``Trainer`` loop and the data readers are not ported
-yet (ROADMAP.md).
+One call of ``node_stage_step`` (stage 1) or ``main_stage_step`` (stage 2)
+deforms the Gaussians at the camera's time, renders them, takes the
+losses and regularizers, differentiates everything with one
+``torch.autograd.grad`` (on CUDA tensors the blend's backward is K2 or
+K4, the blend kernels' backward) and applies the three Adam groups.
+Densify/prune, opacity reset, node downsampling and node densification
+run on the reference's schedule from the host loop.  Parameters, the
+``alive`` masks and Adam moments are updated in place (the JAX package's
+steps are pure); each step returns the state with the new counts,
+moments and densify statistics.  PyTorch runs eagerly, so the JAX
+trainer's ``precompile`` has no counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -24,13 +27,20 @@ from ..data.cameras import Camera
 from ..models import densify as D
 from ..models import regularizers as R
 from ..models.deform import deform_gaussians
+from ..models.deform_mlp import mlp_forward
 from ..models.gaussians import GaussianParams, create_from_pcd
-from ..models.nodes import NodeParams, init_node_params, init_nodes_from_pcl
+from ..models.nodes import (NodeParams, densify_nodes, init_node_params,
+                            init_nodes_from_pcl)
 from ..ops.ssim import l1, psnr, ssim
 from ..render.renderer import render
-from ..utils.general import get_expon_lr_func, resolve_device
+from ..utils.general import (farthest_point_sample, get_expon_lr_func,
+                             get_linear_noise_func, resolve_device)
 from .config import TrainConfig
 from .optim import AdamState, adam_init, adam_update
+
+UNPORTED_LOSSES = ("the motion-mask and optical-flow losses need the 3DGS "
+                   "flow rasterizer and alpha masks, which are not ported yet "
+                   "(ROADMAP.md)")
 
 GAUSS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                 "rotation", "opacity", "feature")
@@ -162,6 +172,87 @@ def photometric_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
     return loss, (out, ll1)
 
 
+def _grads_and_adam(loss, groups, probe, opts, lrs):
+    """One ``torch.autograd.grad`` over the three parameter groups and the
+    screen probe, then Adam on each group in place.  Returns (the three
+    new AdamStates, the probe's gradient)."""
+    inputs = [p for g in groups for p in g.values()] + [probe]
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    new, i = [], 0
+    for g, opt, lr in zip(groups, opts, lrs):
+        new.append(adam_update(dict(zip(g, grads[i:i + len(g)])), opt, g,
+                               lr))
+        i += len(g)
+    g_probe = grads[-1] if grads[-1] is not None else torch.zeros_like(probe)
+    return new, g_probe
+
+
+def node_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
+                    cfg: TrainConfig, sched: dict, gt_alpha=None,
+                    motion_loss: bool = False,
+                    arap_draws: R.ArapDraws | None = None,
+                    elastic_draws: R.TimeDraws | None = None,
+                    acc_draws: R.TimeDraws | None = None):
+    """Stage 1 (train_node_rendering_step, train_gui.py:441-599): the
+    isotropic node Gaussians warped by the deform MLP, rendered, L1 +
+    D-SSIM, plus (when ``sched["reg_on"]`` is 1) the elastic,
+    acceleration and ARAP terms of the node graph.  sched: warm (0/1:
+    iter < node_warm_up; the warp is detached), reg_on (0/1), deform_lr,
+    xyz_lr, time_interval (and optionally step).  The regularizers' random
+    numbers are the ``*_draws`` arguments, or drawn from
+    ``state.generator``.  Returns (state, metrics)."""
+    if motion_loss:
+        raise NotImplementedError(UNPORTED_LOSSES)
+    ng, nodes = state.ngauss, state.nodes
+    dev = ng.xyz.device
+    bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
+    groups = [gauss_trainable(ng), mlp_trainable(nodes),
+              node_trainable(nodes)]
+    probe = torch.zeros((ng.capacity, 2), device=dev, requires_grad=True)
+    gen, m = state.generator, nodes.nodes.shape[0]
+    if arap_draws is None:
+        arap_draws = R.arap_draws(gen, m)
+    if elastic_draws is None:
+        elastic_draws = R.time_draws(gen, 8)
+    if acc_draws is None:
+        acc_draws = R.time_draws(gen)
+
+    t = cam.time.reshape(1, 1).expand(ng.capacity, 1)
+    d_xyz = mlp_forward(nodes.mlp, cfg.node_cfg.mlp, ng.xyz.detach(), t,
+                        step=sched.get("step", 10**9))["d_xyz"]
+    d_xyz = d_xyz * ng.motion_mask
+    # before node_warm_up the warp is detached (train_gui.py:482-483)
+    w = sched["warm"]
+    d_xyz = d_xyz.detach() * w + d_xyz * (1.0 - w)
+    out = render(cam, ng, bg, d_xyz=d_xyz, screen_probe=probe,
+                 cfg=cfg.raster)
+    ll1 = l1(out.image, gt)
+    loss = ((1.0 - cfg.lambda_dssim) * ll1
+            + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
+    reg = (cfg.lambda_elastic * R.elastic_loss(
+               nodes, cfg.node_cfg, elastic_draws, t=cam.time,
+               delta_t=sched["time_interval"])
+           + cfg.lambda_acc * R.acc_loss(
+               nodes, cfg.node_cfg, acc_draws, t=cam.time,
+               delta_t=3.0 * sched["time_interval"]))
+    if not cfg.no_arap_loss:
+        reg = reg + cfg.lambda_node_arap * R.arap_loss(
+            nodes, cfg.node_cfg, arap_draws)
+    loss = loss + sched["reg_on"] * reg
+
+    (ngauss_opt, mlp_opt, node_opt), g_probe = _grads_and_adam(
+        loss, groups, probe, (state.ngauss_opt, state.mlp_opt,
+                              state.node_opt),
+        (gauss_lr_tree(cfg, sched["xyz_lr"]), sched["deform_lr"],
+         cfg.deform_lr_init))
+    stats = D.add_stats(state.ngauss_stats, g_probe, out.visibility,
+                        out.radii.to(torch.float32))
+    metrics = dict(loss=ll1.detach(), psnr=psnr(out.image.detach(), gt),
+                   num_pairs=out.num_pairs, overflow=out.overflow)
+    return state._replace(ngauss_opt=ngauss_opt, mlp_opt=mlp_opt,
+                          node_opt=node_opt, ngauss_stats=stats), metrics
+
+
 def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                     cfg: TrainConfig, sched: dict, gt_alpha=None,
                     motion_loss: bool = False, flow_sample=None,
@@ -172,10 +263,7 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
     term's random numbers are ``arap_draws``, or drawn from
     ``state.generator``.  Returns (state, metrics)."""
     if motion_loss or flow_loss:
-        raise NotImplementedError(
-            "the motion-mask and optical-flow losses need the 3DGS flow "
-            "rasterizer and alpha masks, which are not ported yet "
-            "(ROADMAP.md)")
+        raise NotImplementedError(UNPORTED_LOSSES)
     dev = state.gauss.xyz.device
     bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
     groups = [gauss_trainable(state.gauss), mlp_trainable(state.nodes),
@@ -195,23 +283,11 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
         loss = loss + (1.0 - sched["warm"]) * sched["lambda_arap"] * \
             R.arap_loss(state.nodes, cfg.node_cfg, arap_draws)
 
-    inputs = [p for g in groups for p in g.values()] + [probe]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
-    named, i = [], 0
-    for g in groups:
-        named.append(dict(zip(g, grads[i:i + len(g)])))
-        i += len(g)
-    g_gauss, g_mlp, g_node = named
-    g_probe = grads[-1]
-
-    gauss_opt = adam_update(g_gauss, state.gauss_opt, groups[0],
-                            gauss_lr_tree(cfg, sched["xyz_lr"]))
-    mlp_opt = adam_update(g_mlp, state.mlp_opt, groups[1],
-                          sched["deform_lr"])
-    node_opt = adam_update(g_node, state.node_opt, groups[2],
-                           cfg.deform_lr_init)
-    if g_probe is None:
-        g_probe = torch.zeros_like(probe)
+    (gauss_opt, mlp_opt, node_opt), g_probe = _grads_and_adam(
+        loss, groups, probe, (state.gauss_opt, state.mlp_opt,
+                              state.node_opt),
+        (gauss_lr_tree(cfg, sched["xyz_lr"]), sched["deform_lr"],
+         cfg.deform_lr_init))
     stats = D.add_stats(state.gauss_stats, g_probe, out.visibility,
                         out.radii.to(torch.float32))
     metrics = dict(loss=ll1.detach(), psnr=psnr(out.image.detach(), gt),
@@ -219,3 +295,332 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                    alive=alive)
     return state._replace(gauss_opt=gauss_opt, mlp_opt=mlp_opt,
                           node_opt=node_opt, gauss_stats=stats), metrics
+
+
+# ----------------------------------------------------------------------
+# Densify / maintenance steps
+# ----------------------------------------------------------------------
+
+def densify_step(state: TrainState, cfg: TrainConfig, which: str, extent,
+                 min_opacity, prune_big_ws, grad_max,
+                 noise: torch.Tensor | None = None):
+    """Densify and prune the main (``which`` "main") or the stage-1 node
+    Gaussians, in place.  ``noise`` [2, C, 2]: the split offsets, or drawn
+    from ``state.generator``.  Returns (state, info)."""
+    main = which == "main"
+    p, opt, stats = ((state.gauss, state.gauss_opt, state.gauss_stats)
+                     if main else
+                     (state.ngauss, state.ngauss_opt, state.ngauss_stats))
+    stats2, info = D.densify_and_prune(
+        p, opt.mu, opt.nu, stats, grad_max, min_opacity, extent,
+        prune_big_ws, percent_dense=cfg.percent_dense, noise=noise,
+        generator=state.generator)
+    if main:
+        return state._replace(gauss_stats=stats2), info
+    return state._replace(ngauss_stats=stats2), info
+
+
+def reset_opacity_step(state: TrainState, which: str = "main"):
+    """Opacity ceiling 0.01 and zeroed opacity moments, in place."""
+    p, opt = ((state.gauss, state.gauss_opt) if which == "main"
+              else (state.ngauss, state.ngauss_opt))
+    D.reset_opacity(p, opt.mu, opt.nu, ceiling=0.01)
+    return state
+
+
+@torch.no_grad()
+def node_downsample_step(state: TrainState, cfg: TrainConfig,
+                         fps_start: int | None = None):
+    """Stage-1 downsampling (train_gui.py:556-583): deform the live node
+    Gaussians at 16 times, farthest-point-sample ``node_num`` of them in
+    that trajectory space, and rebuild the nodes and the node Gaussians
+    from the selected subset, with fresh Adam moments and statistics.
+    ``fps_start``: the sample's first index, or drawn from
+    ``state.generator`` among the live node Gaussians."""
+    ng, nodes = state.ngauss, state.nodes
+    dev = ng.xyz.device
+    m_cap, node_num = ng.capacity, cfg.node_num
+    x = ng.xyz.detach()
+    t_samp = torch.linspace(0.0, 1.0, 16, device=dev)
+    tt = t_samp[None, :, None].expand(m_cap, 16, 1)
+    xx = x[:, None, :].expand(m_cap, 16, 3)
+    d_xyz = mlp_forward(nodes.mlp, cfg.node_cfg.mlp, xx, tt)["d_xyz"]
+    d_xyz = d_xyz * ng.motion_mask[:, None, :]
+    hyper_pcl = (d_xyz + x[:, None, :]).reshape(m_cap, -1)
+    idx = farthest_point_sample(hyper_pcl, node_num, generator=state.generator,
+                                start=fps_start, mask=ng.alive).long()
+
+    alive = ng.alive[:, None]
+    scene_range = (torch.max(torch.where(alive, x, float("-inf")))
+                   - torch.min(torch.where(alive, x, float("inf"))))
+    nodes.nodes.copy_(torch.cat(
+        [x[idx], 1e-2 * torch.ones((node_num, cfg.hyper_dim), device=dev)],
+        dim=-1))
+    nodes.node_radius.copy_(torch.log(0.1 * scene_range + 1e-7)
+                            * torch.ones(node_num, device=dev))
+    nodes.node_weight.zero_()
+    nodes.alive.fill_(True)
+
+    # shrink the node Gaussians to the selected subset; dead slots keep
+    # an identity quaternion (an all-zero one has no normalisation)
+    for name in GAUSS_FIELDS:
+        a = getattr(ng, name)
+        sel = a[idx]
+        a.zero_()
+        if name == "rotation":
+            a[:, 0] = 1.0
+        a[:node_num] = sel
+    ng.alive.zero_()
+    ng.alive[:node_num] = True
+    return state._replace(
+        node_opt=adam_init(node_trainable(nodes)),
+        ngauss_opt=adam_init(gauss_trainable(ng)),
+        ngauss_stats=D.init_stats(m_cap, dev))
+
+
+@torch.no_grad()
+def adopt_node_positions(state: TrainState):
+    """End of stage 1: the nodes' xyz become the node Gaussians'
+    (train_gui.py:581-583)."""
+    node_num = state.nodes.nodes.shape[0]
+    state.nodes.nodes[:, :3] = state.ngauss.xyz[:node_num]
+    return state
+
+
+def node_densify_step(state: TrainState, cfg: TrainConfig, grad_max):
+    """Node densify/prune by Gaussian-importance voting (force-run at
+    node_force_densify_prune_step, train_gui.py:413-415).  Returns
+    (state, info)."""
+    st = state.gauss_stats
+    g = torch.where(st.denom > 0, st.grad_accum / st.denom, 0.0)
+    info = densify_nodes(state.nodes, cfg.node_cfg, state.node_opt.mu,
+                         state.node_opt.nu, state.gauss.xyz.detach(),
+                         g[:, None], state.gauss.feature.detach(), grad_max,
+                         state.gauss.alive)
+    return state, info
+
+
+def oneup_sh(state: TrainState, cfg: TrainConfig):
+    state.gauss.oneup_sh_degree()
+    return state
+
+
+# ----------------------------------------------------------------------
+# Host-side training loop
+# ----------------------------------------------------------------------
+
+class Trainer:
+    """Host orchestration: camera sampling, schedules, stage transitions
+    (the JAX package's ``Trainer``, step for step).  Camera picks use
+    ``np.random.RandomState(seed)`` as the JAX trainer does, so both pick
+    the same cameras; model draws come from the state's
+    ``torch.Generator``.  ``precompile`` has no counterpart (PyTorch runs
+    eagerly).  The SIBR viewer, the sharded main stage, the motion-mask
+    loss (``alphas``) and the optical-flow loss (``flow_dirs``) are not
+    ported yet: asking for them raises ``NotImplementedError``."""
+
+    def __init__(self, cfg: TrainConfig, cameras, images,
+                 init_points, init_colors, cameras_extent: float = 5.0,
+                 seed: int = 0, log_fn=None, alphas=None,
+                 flow_dirs=None, image_names=None, device="cuda"):
+        """cameras: list[Camera] on ``device``; images: list of [H,W,3]
+        float arrays or tensors."""
+        if alphas is not None or flow_dirs is not None:
+            raise NotImplementedError(UNPORTED_LOSSES)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cameras = cameras
+        self.images = [torch.as_tensor(im, dtype=torch.float32,
+                                       device=self.device) for im in images]
+        self.alphas = None
+        self.flow_dirs = None
+        self.extent = float(cameras_extent)
+        self.state = init_train_state(
+            cfg, init_points, init_colors,
+            torch.Generator().manual_seed(seed), device=self.device)
+        self.xyz_sched, self.deform_sched = make_schedules(cfg)
+        self.iteration = 1
+        # the node pre-training stage is ControlNodeWarp-specific
+        # (train_gui.py:207-213)
+        self.iteration_node = (1 if cfg.deform_type == "node"
+                               else cfg.iterations_node_rendering)
+        self.rng = np.random.RandomState(seed)
+        self._stack = []
+        self.log_fn = log_fn or (lambda *a, **k: None)
+        self.time_interval = 1.0 / max(len(cameras), 1)
+        # time-noise magnitude schedule (train_gui.py:189)
+        self.smooth_term = get_linear_noise_func(
+            lr_init=0.1, lr_final=1e-15, lr_delay_mult=0.01,
+            max_steps=20_000)
+        self._time_order = np.argsort(
+            [float(c.time) for c in cameras]).tolist()
+        self.viewer = None
+
+    def enable_sharded_training(self, mesh_shape, exchange_cap=None):
+        raise NotImplementedError(
+            "the sharded main stage is not ported yet (ROADMAP.md)")
+
+    def attach_viewer(self, host: str = "127.0.0.1", port: int = 6009):
+        raise NotImplementedError(
+            "the SIBR viewer is not ported yet (ROADMAP.md)")
+
+    def _refill_stack(self):
+        """Progressive time-window curriculum (train_gui.py:238-253)."""
+        cfg, it, n = self.cfg, self.iteration, len(self.cameras)
+        if (cfg.progressive_train and it < int(
+                cfg.progressive_stage_steps / cfg.progressive_stage_ratio)):
+            hi = int(min((it / cfg.progressive_stage_steps + 1)
+                         * cfg.progressive_stage_ratio, 1.0) * n)
+            hi = max(hi, 1)
+            win = int(n * cfg.progressive_stage_ratio)
+            lo = max(0, hi - win)
+            stack = self._time_order[lo:hi]
+            replay = self._time_order[:lo]
+            if len(replay) >= win:
+                stack = stack + [replay[j] for j in self.rng.choice(
+                    len(replay), win, replace=False)]
+            self._stack = stack
+        else:
+            self._stack = list(range(n))
+
+    def _pick_camera(self):
+        if not self._stack:
+            self._refill_stack()
+        i = self._stack.pop(self.rng.randint(len(self._stack)))
+        cam, img = self.cameras[i], self.images[i]
+        if not self.cfg.is_blender:
+            # time noise on the deformation query (train_gui.py:278)
+            noise = (self.rng.randn() * self.time_interval
+                     * self.smooth_term(self.iteration))
+            cam = dataclasses.replace(
+                cam, time=cam.time + torch.tensor(noise, dtype=torch.float32,
+                                                  device=cam.device))
+        self._last_cam_idx = i
+        return cam, img, None
+
+    def _motion_lambda(self, it: int) -> float:
+        """Landmark-scheduled motion-mask weight (arguments/__init__.py:
+        149-151); 0 while the loss is off."""
+        cfg = self.cfg
+        if (not cfg.gt_alpha_mask_as_dynamic_mask or cfg.no_motion_mask_loss
+                or self.alphas is None):
+            return 0.0
+        return float(R.landmark_interpolate(
+            cfg.lambda_motion_mask_landmarks, cfg.lambda_motion_mask_steps,
+            step=max(0, it)))
+
+    # --- stage 1 ---
+    def node_stage_iteration(self):
+        cfg = self.cfg
+        it = self.iteration_node
+        cam, gt, _ = self._pick_camera()
+        sched = dict(
+            warm=1.0 if it < cfg.node_warm_up else 0.0,
+            reg_on=1.0 if it > cfg.node_warm_up else 0.0,
+            deform_lr=self.deform_sched(it), xyz_lr=self.xyz_sched(it),
+            time_interval=self.time_interval, step=it)
+        # at the sampling/downsample boundary no optimizer step is taken
+        # (train_gui.py:584-591)
+        if it != cfg.iterations_node_sampling:
+            self.state, metrics = node_stage_step(self.state, cam, gt, cfg,
+                                                  sched)
+        else:
+            metrics = {}
+        if it < cfg.iterations_node_sampling:
+            if (it % cfg.densification_interval == 0
+                    or it == cfg.node_warm_up - 1):
+                prune_big = it > cfg.opacity_reset_interval
+                self.state, _ = densify_step(
+                    self.state, cfg, "node", self.extent, 0.005, prune_big,
+                    cfg.densify_grad_threshold)
+            if (it % cfg.opacity_reset_interval == 0
+                    or (cfg.white_background and it == cfg.densify_from_iter)):
+                self.state = reset_opacity_step(self.state, "node")
+        elif it == cfg.iterations_node_sampling:
+            self.state = node_downsample_step(self.state, cfg)
+        if it == cfg.iterations_node_rendering - 1:
+            self.state = adopt_node_positions(self.state)
+        self.iteration_node += 1
+        return metrics
+
+    # --- stage 2 ---
+    def main_iteration(self):
+        cfg = self.cfg
+        it = self.iteration
+        if it % cfg.oneup_sh_degree_step == 0:
+            self.state = oneup_sh(self.state, cfg)
+        cam, gt, _ = self._pick_camera()
+        lam_arap = R.landmark_interpolate(
+            *cfg.node_cfg.lambda_arap_schedule, step=max(0, it))
+        late = it > cfg.normal_dist_from_iter
+        sched = dict(
+            warm=1.0 if it < cfg.warm_up else 0.0,
+            lambda_normal=cfg.lambda_normal if late else 0.0,
+            lambda_dist=cfg.lambda_dist if late else 0.0,
+            lambda_arap=float(lam_arap),
+            deform_lr=self.deform_sched(it), xyz_lr=self.xyz_sched(it),
+            step=it)
+        self.state, metrics = main_stage_step(self.state, cam, gt, cfg,
+                                              sched)
+        self._post_main_maintenance(it)
+        self.iteration += 1
+        return metrics
+
+    def _post_main_maintenance(self, it: int):
+        """Densify / opacity-reset schedule after a main-stage step
+        (train_gui.py:410-423)."""
+        cfg = self.cfg
+        if it < cfg.densify_until_iter:
+            if cfg.deform_type == "node" and (
+                    it == cfg.node_force_densify_prune_step
+                    or (cfg.node_enable_densify_prune
+                        and it > cfg.node_densify_from_iter
+                        and it % cfg.node_densification_interval == 0
+                        and it < cfg.node_densify_until_iter
+                        and it > cfg.warm_up)):
+                self.state, _ = node_densify_step(
+                    self.state, cfg, cfg.densify_grad_threshold)
+            if (it > cfg.densify_from_iter
+                    and it % cfg.densification_interval == 0):
+                prune_big = it > cfg.opacity_reset_interval
+                self.state, _ = densify_step(
+                    self.state, cfg, "main", self.extent, 0.01, prune_big,
+                    cfg.densify_grad_threshold)
+            if (it % cfg.opacity_reset_interval == 0
+                    or (cfg.white_background
+                        and it == cfg.densify_from_iter)):
+                self.state = reset_opacity_step(self.state, "main")
+
+    def step(self):
+        t0 = time.perf_counter()
+        if self.iteration_node < self.cfg.iterations_node_rendering:
+            m = self.node_stage_iteration()
+        else:
+            m = self.main_iteration()
+        # inter-step wall time (train_gui.py:175-176,231,374); no device
+        # synchronisation
+        now = time.perf_counter()
+        if m:
+            prev = getattr(self, "_last_step_t", None)
+            m["iter_time_ms"] = ((now - prev) * 1e3 if prev is not None
+                                 else (now - t0) * 1e3)
+        self._last_step_t = now
+        return m
+
+    def total_iterations(self) -> int:
+        """Steps the full schedule takes (node stage only for "node")."""
+        node = (self.cfg.iterations_node_rendering
+                if self.cfg.deform_type == "node" else 0)
+        return self.cfg.iterations + node
+
+    def train(self, num_iters: int | None = None, log_every: int = 100):
+        total = (num_iters if num_iters is not None
+                 else self.total_iterations())
+        for _ in range(total):
+            m = self.step()
+            tick = self.iteration_node + self.iteration
+            if m and tick % log_every == 0:
+                self.log_fn(dict({k: float(v) for k, v in m.items()},
+                                 iter=self.iteration,
+                                 iter_node=self.iteration_node))
+        return self.state

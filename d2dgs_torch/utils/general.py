@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
@@ -50,15 +51,44 @@ def get_expon_lr_func(lr_init: float, lr_final: float,
     return helper
 
 
+def get_linear_noise_func(lr_init: float, lr_final: float,
+                          lr_delay_steps: int = 0,
+                          lr_delay_mult: float = 1.0,
+                          max_steps: int = 1_000_000):
+    """Linear (not log) interpolation with the same delayed warm-up shape:
+    the reference's time-noise magnitude schedule (general_utils.py
+    get_linear_noise_func, used at train_gui.py:189).  Returns step ->
+    float, in float64 on the host as the JAX package does."""
+    def helper(step) -> float:
+        if step < 0 or (lr_init == 0.0 and lr_final == 0.0):
+            return 0.0
+        if lr_delay_steps > 0:
+            delay_rate = lr_delay_mult + (1 - lr_delay_mult) * np.sin(
+                0.5 * np.pi * np.clip(step / lr_delay_steps, 0, 1))
+        else:
+            delay_rate = 1.0
+        t = np.clip(step / max_steps, 0, 1)
+        return float(delay_rate * (lr_init * (1 - t) + lr_final * t))
+    return helper
+
+
 def farthest_point_sample(points: torch.Tensor, n_sample: int,
                           generator: torch.Generator | None = None,
-                          start: int | None = None) -> torch.Tensor:
+                          start: int | None = None,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
     """FPS over [N, D] points -> [n_sample] int32 indices (time_utils.py
     farthest_point_sample): greedy max-min sampling from a start point
-    that is either given or drawn from ``generator``."""
+    that is either given or drawn from ``generator``.  ``mask`` (optional
+    [N] bool): points outside it are never selected, and a drawn start is
+    one of the points inside it."""
     n = points.shape[0]
     if start is None:
-        start = int(torch.randint(0, n, (1,), generator=generator).item())
+        if mask is None:
+            start = int(torch.randint(0, n, (1,), generator=generator))
+        else:
+            inside = torch.nonzero(mask.cpu()).flatten()
+            start = int(inside[torch.randint(0, inside.numel(), (1,),
+                                             generator=generator)])
     idxs = torch.empty((n_sample,), dtype=torch.int64, device=points.device)
     idxs[0] = start
     dist = torch.full((n,), float("inf"), dtype=points.dtype,
@@ -66,5 +96,6 @@ def farthest_point_sample(points: torch.Tensor, n_sample: int,
     for i in range(1, n_sample):
         d = torch.sum((points - points[idxs[i - 1]]) ** 2, dim=-1)
         dist = torch.minimum(dist, d)
-        idxs[i] = torch.argmax(dist)
+        pick = dist if mask is None else torch.where(mask, dist, -1.0)
+        idxs[i] = torch.argmax(pick)
     return idxs.to(torch.int32)

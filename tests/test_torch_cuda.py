@@ -149,3 +149,66 @@ def test_blend_wrapper_refuses_bad_inputs(cuda):
         blend_fwd(fs, rank, start, count.cpu(), gx)
     with pytest.raises(ValueError, match="contiguous"):
         blend_fwd(fs.t().contiguous().t(), rank, start, count, gx)
+
+
+def _dense_args(cam, means, scales, quats, opac, colors, tile_cap):
+    """The dense route's inputs (K3/K4) for one view."""
+    from d2dgs_torch.ops.cuda.blend_dense import build_gdata
+    gx, gy = tile_grid(cam.H, cam.W)
+    prep = preprocess(means, scales, quats, cam)
+    op = torch.where(prep.valid, opac, 0.0)
+    b = bin_gaussians(prep, gx, gy, RasterConfig(), opacity=op)
+    feats = pack_features(prep.T, prep.center, prep.normal, colors, op)
+    gdata, counts = build_gdata(feats, b, tile_cap)
+    return gdata, counts, gx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cap", [256, 32], ids=["cap256", "cap32"])
+@pytest.mark.parametrize("opaque", [False, True], ids=["pallas", "opaque"])
+def test_dense_kernels_match_plain_on_gpu(cuda, opaque, tile_cap):
+    """K3 against blend_dense_plain and K4 (through BlendTilesDense)
+    against blend_dense_plain_vjp on the same CUDA inputs; a tile_cap of
+    32 truncates the busiest tiles.  K3's state equals K1's on the same
+    clamped pair lists (shared device code)."""
+    from d2dgs_torch.ops.cuda.blend_dense import (BlendTilesDense,
+                                                  blend_dense_bwd,
+                                                  blend_dense_fwd,
+                                                  blend_dense_plain,
+                                                  blend_dense_plain_vjp)
+    cam, arrs = _scene(opaque, cuda)
+    gdata, counts, gx = _dense_args(cam, *arrs, tile_cap)
+    before = blend_dense_fwd.launches
+    sk = blend_dense_fwd(gdata, counts, gx)
+    torch.cuda.synchronize()
+    assert blend_dense_fwd.launches == before + 1
+    sp = blend_dense_plain(gdata, counts, gx)
+    img = [ROW_T, ROW_DONE, 4, 5, 6]
+    aux = [r for r in range(ROW_N_EVAL) if r not in img]
+    torch.testing.assert_close(sk[:, img], sp[:, img], **IMG)
+    torch.testing.assert_close(sk[:, aux], sp[:, aux], **AUX)
+    torch.testing.assert_close(sk[:, ROW_N_EVAL:], sp[:, ROW_N_EVAL:],
+                               rtol=0, atol=0)
+    fs, rank, start, count, _ = _kernel_args(cam, *arrs)
+    k1 = blend_fwd(fs, rank, start, torch.clamp_max(count, tile_cap), gx)
+    torch.testing.assert_close(sk, k1, rtol=0, atol=0)
+
+    f = gdata.clone().requires_grad_()
+    before = (blend_dense_fwd.launches, blend_dense_bwd.launches)
+    state = BlendTilesDense.apply(f, counts, gx)
+    g = torch.randn(state.shape, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda)
+    d_kernel, = torch.autograd.grad(state, f, g)
+    torch.cuda.synchronize()
+    assert (blend_dense_fwd.launches, blend_dense_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(state, sk, rtol=0, atol=0)
+    d_plain = blend_dense_plain_vjp(gdata, counts, gx, g)
+    scale = d_plain.abs().amax(dim=(0, 1)) + 1e-8
+    torch.testing.assert_close(d_kernel / scale, d_plain / scale, **GRAD)
+    past = torch.arange(tile_cap, device=cuda)[None, :] >= counts[:, None]
+    assert not bool(d_kernel[past].any())
+    with pytest.raises(ValueError, match="counts"):
+        blend_dense_fwd(gdata, counts[:-1], gx)
+    with pytest.raises(TypeError, match="gdata"):
+        blend_dense_fwd(gdata.double(), counts, gx)
