@@ -9,13 +9,17 @@ Phases (each one fails the run with a non-zero exit):
      blend_fwd.cu, K2 and K4 in blend_bwd.cu);
   2. hold the forward kernel (K1) against its plain PyTorch version on
      the card: a 48x64 scene of 160 splats, the same scene all opaque
-     (early termination), and the full-width scene of phase 3; check the
-     tiled CUDA render of the small scene against the dense oracle;
-  2b. hold the backward kernel (K2) against its plain version (autograd
-     through the plain blend) on the same three scenes, with a seeded
-     cotangent on the state rows the maps read; on the full-width view
-     the cotangent is non-zero on the 16 heaviest tiles and 48 seeded
-     ones, and the plain version runs on those tiles alone;
+     (early termination), a packed 48x64 scene of 700 splats (its busiest
+     tile spans three 256-pair backward segments) and the full-width
+     scene of phase 3; check the tiled CUDA render of the small scenes
+     against the dense oracle;
+  2b. hold the backward kernel (K2, one CTA per 256-pair segment of a
+     tile, from K1's training checkpoints) against its plain version
+     (autograd through the plain blend) on the same four scenes, with a
+     seeded cotangent on the state rows the maps read; on the full-width
+     view the cotangent is non-zero on the 16 heaviest tiles (up to 12
+     segments each) and 48 seeded ones, and the plain version runs on
+     those tiles alone;
   3. the served path at full width: 83,252 Gaussians from
      CONVERGENCE_r05_dist.npz at capacity 100,000, SH degree 3, 1024
      control nodes with the 8x256 deform MLP and its timenet, and four
@@ -30,13 +34,17 @@ Phases (each one fails the run with a non-zero exit):
      JAX trainer's LRs at iterations 8001-8010; checks finite loss, moments and
      parameters, one K1 and one K2 launch per step, the densify counts
      and a falling L1, then times the step and its stages, K1 in training
-     mode, K2 and K2's plain version;
+     mode (with its checkpoints), K2 and K2's plain version, and prints
+     the tiles' walk lengths and each K2 work item's %globaltimer
+     duration (the longest, the launch's span), the work-item count and
+     the checkpoint bytes;
   5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
-     against their plain versions on the two 48x64 scenes and on the
+     against their plain versions on the three 48x64 scenes and on the
      full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
      view again at a tile_cap of half its busiest tile (K3 must equal K1 on
      the clamped lists, and both routes' overflow the dropped pairs), then
-     time K3, K4, their plain versions and the dense pair gather;
+     time K3, K4 (with its work items, as K2's), their plain versions,
+     K4's zero fill and the dense pair gather;
   5b. the Trainer at full width on the dense route: a video of 8 orbit
      cameras x 4 times at 800x800 rendered from the phase-3 scene moved by
      the synthetic scene's rigid motion, a 100,000-point initial cloud,
@@ -117,17 +125,23 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def small_scene(opaque: bool):
-    """48x64 view of 160 random splats (the shapes of the JAX package's
-    blend-kernel tests), optionally all at opacity 0.999."""
-    n = 160
+SMALL_SCENES = ("48x64", "48x64 opaque", "48x64 packed")
+
+
+def small_scene(label: str):
+    """48x64 views: 160 random splats (the shapes of the JAX package's
+    blend-kernel tests), the same all at opacity 0.999 ("opaque"), and 700
+    splats packed near the view centre ("packed": its busiest tile holds
+    626 pairs, three backward segments)."""
+    n, spread, bias = (700, 0.15, -1.0) if label.endswith("packed") else \
+        (160, 0.5, 1.0)
     rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * 0.5
+    means = rs.normal(size=(n, 3)) * spread
     scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
     quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + 1.0)))
-    if opaque:
+    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
+    if label.endswith("opaque"):
         opac = np.full(n, 0.999)
     colors = rs.uniform(size=(n, 3))
     f32 = lambda a: np.asarray(a, np.float32)
@@ -232,21 +246,23 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     ``tiles``, outside those tiles; all 18 feature gradients compared
     max-normalised per column."""
     from d2dgs_torch.ops.cuda.blend import (NREC, blend_bwd, blend_fwd,
-                                            blend_tiles_plain_vjp)
+                                            blend_tiles_plain_vjp,
+                                            segment_layout)
     from d2dgs_torch.ops.tiled_raster import PIX
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
             binning.tile_count, gx)
     num_tiles = binning.tile_start.shape[0]
     records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
                           device=feats_sorted.device)
-    state = blend_fwd(*args, records=records)
+    seg = segment_layout(binning.tile_count)
+    state = blend_fwd(*args, records=records, segments=seg)
     g = map_cotangent(state, seed=4)
     g = torch.where(flip[:, None, :], 0.0, g)
     if tiles is not None:
         keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
         keep[tiles] = True
         g = torch.where(keep[:, None, None], g, 0.0)
-    dk = blend_bwd(*args, state, records, g)
+    dk = blend_bwd(*args, state, records, g, seg)
     torch.cuda.synchronize()
     dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
     torch.cuda.synchronize()
@@ -554,6 +570,58 @@ def k2_bound(fs, binning, state, records, n_reduce: int):
                      + state.shape[0] * 4, fs.numel() * 4, n_reduce)
 
 
+WALK_BINS = (0, 1, 65, 129, 257, 513, 1025, 2049, 4097)
+
+
+def walk_histogram(records) -> dict:
+    """Tiles per range of walk length (the tile's slowest pixel's last
+    blended pair + 1, the pairs a back-to-front walk covers)."""
+    from d2dgs_torch.ops.cuda.blend import REC_LAST
+    n_walk = records[:, REC_LAST].amax(dim=1).to(torch.int64) + 1
+    edges = torch.tensor(WALK_BINS, device=n_walk.device)
+    idx = torch.bucketize(n_walk, edges, right=True) - 1
+    counts = torch.bincount(idx, minlength=len(WALK_BINS)).tolist()
+    names = ["0"] + [f"{a}-{b - 1}" for a, b in zip(WALK_BINS[1:],
+                                                     WALK_BINS[2:])] \
+        + [f">={WALK_BINS[-1]}"]
+    return {n: c for n, c in zip(names, counts[:len(names)]) if c}
+
+
+def item_walks(records, segments):
+    """The pairs each backward work item walks: its segment's share of
+    its tile's walk length."""
+    from d2dgs_torch.ops.cuda.blend import REC_LAST, SEG
+    n_walk = records[:, REC_LAST].amax(dim=1).to(torch.int64) + 1
+    t, s = segments.items.long().unbind(1)
+    return torch.clamp(n_walk[t] - s * SEG, 0, SEG)
+
+
+def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
+    """The per-work-item timer of a backward launch: [I, 2] int64
+    %globaltimer stamps at each item's start and end; ``item_tile`` and
+    ``item_walk`` give each item's tile and the pairs it walked."""
+    dur = (item_ns[:, 1] - item_ns[:, 0]).to(torch.float64) / 1e3   # us
+    span = float(item_ns[:, 1].max() - item_ns[:, 0].min()) / 1e3
+    top = torch.topk(dur, min(5, dur.numel()))
+    slow = [{"us": round(float(d), 3), "tile": int(item_tile[i]),
+             "pairs": int(tile_count[item_tile[i]]),
+             "walk": int(item_walk[i]),
+             "start_us": round(float(item_ns[i, 0] - item_ns[:, 0].min())
+                               / 1e3, 3)}
+            for d, i in zip(top.values.tolist(), top.indices.tolist())]
+    walked = item_walk > 0
+    res = {"items": int(dur.numel()), "span_us": span,
+           "slowest_us": float(top.values[0]), "slowest": slow,
+           "mean_us": float(dur[walked].mean()) if bool(walked.any())
+           else 0.0,
+           "sum_us": float(dur.sum()),
+           "us_per_walked_pair": float(dur[walked].sum()
+                                       / item_walk[walked].sum())
+           if bool(walked.any()) else 0.0}
+    log(f"[{tag}] {label} work items: " + json.dumps(res))
+    return res
+
+
 def dense_inputs(feats_sorted, binning, tile_cap: int):
     """The dense route's (gdata, counts) for one view, from its depth-sorted
     features (build_gdata with the identity order)."""
@@ -586,7 +654,7 @@ def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
     """K4 against blend_dense_plain_vjp, as check_backward holds K2: a
     seeded cotangent on the map rows, zero at the flipped pixels and, with
     ``tiles``, outside those tiles."""
-    from d2dgs_torch.ops.cuda.blend import NREC
+    from d2dgs_torch.ops.cuda.blend import NREC, segment_layout
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain_vjp)
@@ -594,13 +662,14 @@ def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
     num_tiles = gdata.shape[0]
     records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
                           device=gdata.device)
-    state = blend_dense_fwd(gdata, counts, gx, records=records)
+    seg = segment_layout(counts)
+    state = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg)
     g = torch.where(flip[:, None, :], 0.0, map_cotangent(state, seed=4))
     if tiles is not None:
         keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
         keep[tiles] = True
         g = torch.where(keep[:, None, None], g, 0.0)
-    dk = blend_dense_bwd(gdata, counts, gx, state, records, g)
+    dk = blend_dense_bwd(gdata, counts, gx, state, records, g, seg)
     torch.cuda.synchronize()
     dp = blend_dense_plain_vjp(gdata, counts, gx, g, tiles=tiles, chunk=chunk)
     torch.cuda.synchronize()
@@ -655,7 +724,7 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     """K3 and K4 against their plain versions on the two 48x64 scenes and
     the full-width t=0.5 view, the view again at a tile_cap below its
     busiest tile, then their times beside their bounds and plain times."""
-    from d2dgs_torch.ops.cuda.blend import NREC, blend_fwd
+    from d2dgs_torch.ops.cuda.blend import NREC, blend_fwd, segment_layout
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain,
@@ -663,12 +732,11 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     from d2dgs_torch.ops.tiled_raster import PIX
     dev = fs_t.device
     checks, grads = {}, {}
-    for opaque in (False, True):
-        arrs = [torch.as_tensor(a, device=dev) for a in small_scene(opaque)]
+    for label in SMALL_SCENES:
+        arrs = [torch.as_tensor(a, device=dev) for a in small_scene(label)]
         alive = torch.ones(arrs[0].shape[0], dtype=torch.bool, device=dev)
         fs, binning, gx = splat_inputs(*arrs, alive, cam_s, cfg)
         gdata, counts = dense_inputs(fs, binning, cfg.tile_cap)
-        label = "48x64 opaque" if opaque else "48x64"
         _, checks[label] = check_dense_kernel(label, gdata, counts, gx,
                                               cfg.chunk)
         grads[label] = check_dense_backward(label, gdata, counts, gx,
@@ -714,17 +782,28 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         # versions, and the dense layout's gather
         records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
                               device=dev)
-        state = blend_dense_fwd(gdata, counts, gx_t, records=records)
+        seg = segment_layout(counts)
+        state = blend_dense_fwd(gdata, counts, gx_t, records=records,
+                                segments=seg)
         g = map_cotangent(state, seed=9)
         n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
-        blend_dense_bwd(gdata, counts, gx_t, state, records, g,
+        blend_dense_bwd(gdata, counts, gx_t, state, records, g, seg,
                         n_reduce=n_reduce)
+        item_ns = torch.zeros((seg.items.shape[0], 2), dtype=torch.int64,
+                              device=dev)
+        blend_dense_bwd(gdata, counts, gx_t, state, records, g, seg,
+                        item_ns=item_ns)
+        torch.cuda.synchronize()
+        k4_items = item_report("phase 5a", "K4", item_ns, seg.items[:, 0],
+                               item_walks(records, seg), counts)
         k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t),
                         reps=20)
         k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
-            gdata, counts, gx_t, records=records), reps=20)
+            gdata, counts, gx_t, records=records, segments=seg), reps=20)
         k4_ms = cuda_ms(lambda: blend_dense_bwd(gdata, counts, gx_t, state,
-                                                records, g), reps=20)
+                                                records, g, seg), reps=20)
+        # the wrapper's zero fill of d_gdata, inside K4's time
+        zero_ms = cuda_ms(lambda: torch.zeros_like(gdata), reps=20)
         k3_plain_ms = cuda_ms(lambda: blend_dense_plain(
             gdata, counts, gx_t, chunk=cfg.chunk), reps=3)
         k4_plain_ms = plain_dense_vjp_all_tiles_ms(gdata, counts, gx_t, g,
@@ -756,6 +835,8 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
            "k3_plain_ms": k3_plain_ms, "k4_plain_ms": k4_plain_ms,
            "gather_ms": gather_ms, "gather_bwd_ms": float(np.mean(back[1:])),
            "gdata_bytes": gdata.numel() * 4, "k3_bound": b3, "k4_bound": b4,
+           "k4_items": k4_items, "ckpt_bytes": seg.ckpt.numel() * 4,
+           "k4_zero_fill_ms": zero_ms,
            "checks": checks, "grads": grads,
            "k3_max_abs_err": checks[label]["max_abs_err"],
            "k4_max_abs_err": grads[label]["max_abs_err"]}
@@ -765,7 +846,10 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         f"{k3_plain_ms:.1f} ms; K4 {k4_ms:.4f} ms, bound "
         f"{b4['bound_ms']:.4f} ms by {b4['bound_by']} ({b4['ops']:.4g} ops, "
         f"{b4['bytes']} B, {int(n_reduce)} warp sums), plain "
-        f"{k4_plain_ms:.1f} ms (64-tile batches); build_gdata "
+        f"{k4_plain_ms:.1f} ms (64-tile batches), zero fill of d_gdata "
+        f"{zero_ms:.4f} ms, {k4_items['items']} work "
+        f"items, longest {k4_items['slowest_us']:.1f} us, checkpoints "
+        f"{seg.ckpt.numel() * 4} B; build_gdata "
         f"{gather_ms:.4f} ms, its transpose {res['gather_bwd_ms']:.4f} ms, "
         f"gdata {gdata.numel() * 4} B")
     return res
@@ -951,7 +1035,8 @@ def main() -> int:
     from d2dgs_torch.ops.cuda import build
     from d2dgs_torch.ops.cuda import blend as blend_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
-                                            blend_bwd, blend_fwd)
+                                            blend_bwd, blend_fwd,
+                                            segment_layout)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
     from d2dgs_torch.ops.tiled_raster import (PIX, blend_tiles_plain,
@@ -985,13 +1070,12 @@ def main() -> int:
     H, W = 48, 64
     cam_s = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=H, W=W, device=dev)
     bwd_checks = {}
-    for opaque in (False, True):
-        arrs = [torch.as_tensor(a, device=dev) for a in small_scene(opaque)]
+    for label in SMALL_SCENES:
+        arrs = [torch.as_tensor(a, device=dev) for a in small_scene(label)]
         means, scales, quats, opac, colors = arrs
         alive = torch.ones(means.shape[0], dtype=torch.bool, device=dev)
         fs, binning, gx = splat_inputs(means, scales, quats, opac, colors,
                                        alive, cam_s, cfg)
-        label = "48x64 opaque" if opaque else "48x64"
         _, res = check_kernel(label, fs, binning, gx, cfg.chunk)
         bwd_checks[label] = check_backward(label, fs, binning, gx, cfg.chunk,
                                            res["flip_mask"])
@@ -1204,15 +1288,25 @@ def main() -> int:
                   gx_t)
         records = torch.empty((bin_t.tile_start.shape[0], NREC, PIX),
                               dtype=torch.int32, device=dev)
-        state_t = blend_fwd(*args_t, records=records)
+        seg_t = segment_layout(bin_t.tile_count)
+        state_t = blend_fwd(*args_t, records=records, segments=seg_t)
         g_t = map_cotangent(state_t, seed=9)
         n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
-        blend_bwd(*args_t, state_t, records, g_t, n_reduce=n_reduce)
-        k1_train_ms = cuda_ms(lambda: blend_fwd(*args_t, records=records),
-                              reps=20)
+        blend_bwd(*args_t, state_t, records, g_t, seg_t, n_reduce=n_reduce)
+        item_ns = torch.zeros((seg_t.items.shape[0], 2),
+                              dtype=torch.int64, device=dev)
+        blend_bwd(*args_t, state_t, records, g_t, seg_t, item_ns=item_ns)
+        torch.cuda.synchronize()
+        hist_t = walk_histogram(records)
+        log(f"[phase 4] t=0.5 view, tiles per walk length: "
+            + json.dumps(hist_t))
+        k2_items = item_report("phase 4", "K2", item_ns, seg_t.items[:, 0],
+                               item_walks(records, seg_t), bin_t.tile_count)
+        k1_train_ms = cuda_ms(lambda: blend_fwd(
+            *args_t, records=records, segments=seg_t), reps=20)
         k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)
-        k2_ms = cuda_ms(lambda: blend_bwd(*args_t, state_t, records, g_t),
-                        reps=20)
+        k2_ms = cuda_ms(lambda: blend_bwd(*args_t, state_t, records, g_t,
+                                          seg_t), reps=20)
         k2_plain_ms = plain_vjp_all_tiles_ms(fs_t, bin_t, gx_t, g_t,
                                              cfg.chunk)
     train_stages["k2_alone"] = k2_ms
@@ -1237,7 +1331,10 @@ def main() -> int:
         f" blends, {bound2['ops']:.4g} ops -> {bound2['t_ops']:.4f} ms; "
         f"{bound2['bytes']} bytes ({bound2['n_reduce']} warp sums) -> "
         f"{bound2['t_bytes']:.4f} ms; K1 bound on this view "
-        f"{bound1_t['bound_ms']:.4f} ms by {bound1_t['bound_by']}")
+        f"{bound1_t['bound_ms']:.4f} ms by {bound1_t['bound_by']}; "
+        f"{k2_items['items']} work items, longest "
+        f"{k2_items['slowest_us']:.1f} us; checkpoints "
+        f"{seg_t.ckpt.numel() * 4} B (not in the bound)")
 
     # ---- phase 5a: K3 and K4 against their plain versions, and timed ----
     res5a = phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card)
@@ -1283,6 +1380,11 @@ def main() -> int:
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": bound2["bound_ms"], "bound_by": bound2["bound_by"],
         "library_ms": None,
+        "work_items": k2_items["items"],
+        "longest_item_us": k2_items["slowest_us"],
+        "items_span_us": k2_items["span_us"],
+        "checkpoint_bytes": seg_t.ckpt.numel() * 4,
+        "walk_histogram": hist_t,
         "step_ms": step_ms, "train_stages_ms": train_stages,
         "l1": l1s}, {
         "name": "blend_dense_fwd", "route": "cuda",
@@ -1314,7 +1416,11 @@ def main() -> int:
                          for k, v in res5a["grads"].items()},
         "ms": res5a["k4_ms"], "plain_ms": res5a["k4_plain_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None, "work_items": res5a["k4_items"]["items"],
+        "longest_item_us": res5a["k4_items"]["slowest_us"],
+        "items_span_us": res5a["k4_items"]["span_us"],
+        "checkpoint_bytes": res5a["ckpt_bytes"],
+        "zero_fill_ms": res5a["k4_zero_fill_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,13 +18,18 @@
 // `_chunk_step`, with the same arithmetic, so the two routes make the same
 // alpha, near-plane and cutoff decisions bit for bit.
 //
-// What bounds it on this card: operations.  Each (pair, pixel) evaluation
-// is ~50 float32 operations (ray-splat intersection, low-pass filter, exp)
-// plus ~35 more when the pair is blended, against 72 bytes of features per
-// pair that are shared by the tile's 256 pixels, so the kernel sits far
-// above the card's float32 ridge point (67 TFLOP/s over 3.35 TB/s, about
-// 20 operations per byte).  Its bytes are the feature rows, the pair ranks
-// (K1) and the 16 state rows written per pixel.
+// What bounds it on this card: its busiest tile.  Each (pair, pixel)
+// evaluation is ~50 float32 operations (ray-splat intersection, low-pass
+// filter, exp) plus ~35 more when the pair is blended, against 72 bytes of
+// features per pair that are shared by the tile's 256 pixels, so the
+// kernel sits far above the card's float32 ridge point (67 TFLOP/s over
+// 3.35 TB/s, about 20 operations per byte).  Its bytes are the feature
+// rows, the pair ranks (K1) and the 16 state rows written per pixel.  But
+// the tiles are very unequal (on an 800x800 view most hold no pair and the
+// busiest ~2,900), and one CTA walks each tile in order, so the launch
+// lasts as long as the busiest tile's walk; the backward kernels split
+// theirs at the checkpoints below, a forward split needs each segment's
+// incoming state first (a prefix pass, not done here).
 //
 // What the design does about it:
 //  * one CTA per 16x16 tile, one thread per pixel: all 14 accumulators live
@@ -52,12 +57,15 @@
 // Rows 14 and 15 count the pairs each pixel evaluated and blended; they
 // size the operation count of the kernel's bound.
 //
-// Training mode (``records`` not null): per pixel, the position in the
-// tile's pair list of the last blended pair and of the median pair (-1
-// when there is none), [T, NREC, PIX] int32.  The backward kernel
-// (blend_bwd.cu) starts its back-to-front walk from them; the final T,
-// dist1 and dist2 it needs are state rows 0, 2 and 3.  Serving passes
-// null and nothing extra is written.
+// Training mode (``records`` not null, the kTrain instance): per pixel, the
+// position in the tile's pair list of the last blended pair and of the
+// median pair (-1 when there is none), [T, NREC, PIX] int32, and at every
+// BATCH-th pair b = 256, 512, ... that the CTA reaches, the NCKPT running
+// accumulators after pairs [0, b) into checkpoint ckpt_off[t] + b/256 - 1
+// of ``ckpt`` [n_bound, NCKPT, PIX] (the wrapper sizes it and the offsets
+// from the counts).  The backward kernels (blend_bwd.cu) start each
+// 256-pair segment's walk from them.  Serving passes null and compiles to
+// the instance that writes nothing extra.
 
 #include <cuda_runtime.h>
 
@@ -69,6 +77,9 @@ constexpr int NFEAT = 18;          // Tmat(9) center(2) normal(3) color(3) opaci
 constexpr int NSTATE = 16;
 constexpr int NREC = 2;            // training records: last, median
 constexpr int BATCH = 256;         // pairs staged per shared-memory batch
+// training checkpoints: T, dist1, dist2, colour(3), depth, normal(3),
+// distortion (state rows 0 and 2-11) at every BATCH-th pair
+constexpr int NCKPT = 11;
 
 constexpr float FILTER_INV_SQUARE = 2.0f;
 constexpr float ALPHA_CLIP = 0.99f;
@@ -98,13 +109,15 @@ struct DenseRows {             // K3: the tile's own slab [tile_cap, NFEAT]
   __device__ int row(int b, int i) const { return b + i; }
 };
 
-template <class Rows>
+template <class Rows, bool kTrain>
 __global__ void __launch_bounds__(PIX)
 blend_fwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
                  Rows rows_of,
                  int grid_x,
                  float* __restrict__ state,            // [T, NSTATE, PIX]
-                 int* __restrict__ records)            // [T, NREC, PIX] or null
+                 int* __restrict__ records,            // [T, NREC, PIX]
+                 float* __restrict__ ckpt,             // [n_bound, NCKPT, PIX]
+                 const int* __restrict__ ckpt_off)     // [T]
 {
   __shared__ int s_row[BATCH];
   __shared__ float s_feat[BATCH * NFEAT];
@@ -128,6 +141,16 @@ blend_fwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
     // CTA-wide exit once every pixel is done; also the barrier that
     // protects the shared batch of the previous iteration
     if (__syncthreads_count(!done) == 0) break;
+    if (kTrain && b0 > 0) {
+      // the accumulators after pairs [0, b0): the backward's post-state
+      // for the segment that ends here
+      float* ck = ckpt + (size_t)(ckpt_off[tile] + b0 / BATCH - 1) * NCKPT
+          * PIX + tid;
+      const float rows[NCKPT] = {T, dist1, dist2, c0, c1, c2, depth_acc,
+                                 n0, n1, n2, distortion};
+#pragma unroll
+      for (int r = 0; r < NCKPT; ++r) ck[r * PIX] = rows[r];
+    }
     const int nb = min(BATCH, count - b0);
     if (tid < nb) s_row[tid] = rows_of.row(start, b0 + tid);
     __syncthreads();
@@ -204,7 +227,7 @@ blend_fwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
                               (float)n_eval, (float)n_blend};
 #pragma unroll
   for (int r = 0; r < NSTATE; ++r) out[r * PIX] = rows[r];
-  if (records != nullptr) {
+  if (kTrain) {
     int* rec = records + (size_t)tile * NREC * PIX + tid;
     rec[0] = last;
     rec[PIX] = med;
@@ -216,21 +239,35 @@ blend_fwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
 extern "C" int blend_fwd_launch(const float* feats, const int* pair_rank,
                                 const int* tile_start, const int* tile_count,
                                 int num_tiles, int grid_x, float* state,
-                                int* records, void* stream) {
+                                int* records, float* ckpt,
+                                const int* ckpt_off, void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_fwd_kernel<RankedRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-      feats, RankedRows{pair_rank, tile_start, tile_count}, grid_x, state,
-      records);
+  const RankedRows rows{pair_rank, tile_start, tile_count};
+  if (records != nullptr)
+    blend_fwd_kernel<RankedRows, true><<<num_tiles, PIX, 0,
+                                          (cudaStream_t)stream>>>(
+        feats, rows, grid_x, state, records, ckpt, ckpt_off);
+  else
+    blend_fwd_kernel<RankedRows, false><<<num_tiles, PIX, 0,
+                                           (cudaStream_t)stream>>>(
+        feats, rows, grid_x, state, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 
 extern "C" int blend_dense_fwd_launch(const float* gdata, const int* counts,
                                       int tile_cap, int num_tiles, int grid_x,
-                                      float* state, int* records,
-                                      void* stream) {
+                                      float* state, int* records, float* ckpt,
+                                      const int* ckpt_off, void* stream) {
   if (num_tiles <= 0) return 0;
-  blend_fwd_kernel<DenseRows><<<num_tiles, PIX, 0, (cudaStream_t)stream>>>(
-      gdata, DenseRows{counts, tile_cap}, grid_x, state, records);
+  const DenseRows rows{counts, tile_cap};
+  if (records != nullptr)
+    blend_fwd_kernel<DenseRows, true><<<num_tiles, PIX, 0,
+                                         (cudaStream_t)stream>>>(
+        gdata, rows, grid_x, state, records, ckpt, ckpt_off);
+  else
+    blend_fwd_kernel<DenseRows, false><<<num_tiles, PIX, 0,
+                                          (cudaStream_t)stream>>>(
+        gdata, rows, grid_x, state, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

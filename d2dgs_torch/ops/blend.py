@@ -77,17 +77,27 @@ class BlendState(NamedTuple):
     med_weight: torch.Tensor
     n_eval: torch.Tensor      # pairs evaluated (up to and with the trigger)
     n_blend: torch.Tensor     # pairs blended (alpha > 0, before the trigger)
+    # with ``positions``: the positions in the pair list of the last
+    # blended pair and of the median pair (-1 for none), int64
+    last: torch.Tensor | None = None
+    med: torch.Tensor | None = None
 
 
-def init_state(shape, device=None, dtype=torch.float32) -> BlendState:
-    """shape: the pixel shape (..., P)."""
+def init_state(shape, device=None, dtype=torch.float32,
+               positions: bool = False) -> BlendState:
+    """shape: the pixel shape (..., P).  ``positions``: also track the
+    last blended and the median pair's positions (``BlendState.last`` and
+    ``med``)."""
     z = torch.zeros(shape, dtype=dtype, device=device)
     z3 = torch.zeros(tuple(shape) + (3,), dtype=dtype, device=device)
+    none = torch.full(shape, -1, dtype=torch.int64, device=device) \
+        if positions else None
     return BlendState(
         T=torch.ones(shape, dtype=dtype, device=device),
         done=torch.zeros(shape, dtype=torch.bool, device=device),
         color=z3, depth=z, normal=z3.clone(), dist1=z, dist2=z,
-        distortion=z, med_depth=z, med_weight=z, n_eval=z, n_blend=z)
+        distortion=z, med_depth=z, med_weight=z, n_eval=z, n_blend=z,
+        last=none, med=none)
 
 
 def _ex_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -98,12 +108,14 @@ def _ex_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 def blend_chunk(state: BlendState, alpha: torch.Tensor, depth: torch.Tensor,
                 color: torch.Tensor, normal: torch.Tensor,
-                n_rows: torch.Tensor | None = None) -> BlendState:
+                n_rows: torch.Tensor | None = None,
+                offset: int = 0) -> BlendState:
     """Composite a depth-sorted chunk.
 
     alpha/depth: [..., G,P] (alpha pre-masked, 0 => skip);
     color/normal: [..., G,3]; n_rows: [...] count of real (not padding)
-    rows, for the ``n_eval`` counter (default G).
+    rows, for the ``n_eval`` counter (default G); offset: the position of
+    the chunk's first row in the pair list (for ``state.last``/``med``).
     """
     g = alpha.shape[-2]
     one_minus = 1.0 - alpha
@@ -148,6 +160,12 @@ def blend_chunk(state: BlendState, alpha: torch.Tensor, depth: torch.Tensor,
 
     rows = g if n_rows is None else n_rows[..., None]
     evaluated = torch.where(any_trig, first + 1, rows)
+    pos_last, pos_med = state.last, state.med
+    if pos_last is not None:
+        blended = include & (alpha > 0.0)
+        last_b = torch.amax(torch.where(blended, idx, -1), dim=-2)
+        pos_last = torch.where(last_b >= 0, offset + last_b, pos_last)
+        pos_med = torch.where(has_med, offset + last[..., 0, :], pos_med)
     return BlendState(
         T=state.T * torch.prod(torch.where(include, one_minus, 1.0), dim=-2),
         done=state.done | any_trig,
@@ -161,6 +179,7 @@ def blend_chunk(state: BlendState, alpha: torch.Tensor, depth: torch.Tensor,
                                           evaluated.to(alpha.dtype)),
         n_blend=state.n_blend + torch.sum(include & (alpha > 0.0), dim=-2,
                                           dtype=alpha.dtype),
+        last=pos_last, med=pos_med,
     )
 
 

@@ -6,20 +6,28 @@ K1 replaces ``_fwd_wq_kernel`` of d2dgs_tpu/ops/pallas/blend_tpu.py: it
 blends every tile's depth-sorted pair list into the state rows
 [T, NSTATE, PIX] (layout ROW_* in ops/tiled_raster.py); its plain
 PyTorch version is ``blend_tiles_plain``.  K2 replaces
-``_bwd_wq_kernel``: from K1's state and per-pixel records it computes the
-gradient of the 18 sorted feature columns; its plain PyTorch version is
-``blend_tiles_plain_vjp`` below.  The same two libraries also hold K3
-and K4, the dense route's entry points (wrapped in blend_dense.py).
+``_bwd_wq_kernel``: from K1's state, per-pixel records and checkpoints
+it computes the gradient of the 18 sorted feature columns, one work item
+per (tile, SEG-pair segment); its plain PyTorch version is
+``blend_tiles_plain_vjp`` below, and ``blend_bwd_segments_plain``
+emulates its algorithm.  The same two libraries also hold K3 and K4, the
+dense route's entry points (wrapped in blend_dense.py).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from typing import NamedTuple
 
 import torch
 
-from ..tiled_raster import (NFEAT, NSTATE, PIX, ROW_D1, ROW_D2, ROW_DONE,
-                            ROW_N_BLEND, ROW_N_EVAL, blend_tiles_plain)
+from ...config import (ALPHA_CLIP, ALPHA_CUTOFF, FAR_PLANE,
+                       FILTER_INV_SQUARE, NEAR_PLANE)
+from ..tiled_raster import (CKPT_ROWS, NCKPT, NFEAT, NSTATE, PIX, ROW_D1,
+                            ROW_D2, ROW_DONE, ROW_MED_W, ROW_N_BLEND,
+                            ROW_N_EVAL, _tile_pixels, blend_tiles_plain,
+                            blend_walk)
 from . import build
 
 SOURCE = "blend_fwd.cu"
@@ -31,16 +39,54 @@ REC_LAST = 0
 # state rows whose cotangent K2 takes as zero, as the TPU kernel does:
 # done, the final dist1/dist2 and the two work counters
 DEAD_ROWS = (ROW_DONE, ROW_D1, ROW_D2, ROW_N_EVAL, ROW_N_BLEND)
+# pairs per backward segment: a training forward checkpoints its
+# accumulators (CKPT_ROWS) at every SEG-th pair (the kernels' BATCH)
+SEG = 256
+
+
+class Segments(NamedTuple):
+    """A training forward's checkpoints and the backward's work items.
+    Tile t has max(1, ceil(count[t] / seg)) items, tile by tile: item i
+    is segment s = ``items[i, 1]`` (pairs [s*seg, (s+1)*seg)) of tile
+    t = ``items[i, 0]``, whose walk starts from checkpoint
+    ``ckpt_off[t] + s``, the state after pairs [0, (s+1)*seg), or from
+    the final state for the tile's last segment."""
+    ckpt_off: torch.Tensor    # [T] int32: tile t's first checkpoint
+    items: torch.Tensor       # [I, 2] int32 (tile, segment), I = T + n_bound
+    ckpt: torch.Tensor        # [n_bound, NCKPT, PIX] float32
+
+
+def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
+    """The checkpoint offsets, the work items and an (unwritten)
+    checkpoint buffer for the pair counts ``counts`` [T] (as the blend
+    kernels take them, clamped at tile_cap): tile t has
+    max(0, ceil(count / seg) - 1) checkpoints.  The buffer is sized from
+    the counts, which costs one device-to-host read."""
+    dev = counts.device
+    c = counts.long()
+    n_ck = torch.clamp_min((c + seg - 1) // seg - 1, 0)
+    ends = torch.cumsum(n_ck, 0)
+    n_bound = int(ends[-1]) if c.numel() else 0
+    n_items = c.numel() + n_bound
+    off = ends - n_ck
+    tiles = torch.arange(c.numel(), device=dev)
+    tile = torch.repeat_interleave(tiles, n_ck + 1, output_size=n_items)
+    # tile t's items start at item t + off[t]
+    items = torch.stack([tile, torch.arange(n_items, device=dev)
+                         - (tiles + off)[tile]], dim=1)
+    return Segments(off.to(torch.int32), items.to(torch.int32),
+                    torch.empty((n_bound, NCKPT, PIX), dtype=torch.float32,
+                                device=dev))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
     lib.blend_fwd_launch.restype = ctypes.c_int
     lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
     lib.blend_dense_fwd_launch.restype = ctypes.c_int
     lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_fwd_error_string.restype = ctypes.c_char_p
@@ -51,10 +97,10 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = build.load(SOURCE_BWD)
     lib.blend_bwd_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
     lib.blend_bwd_launch.restype = ctypes.c_int
     lib.blend_dense_bwd_launch.argtypes = [ctypes.c_void_p] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
     lib.blend_dense_bwd_launch.restype = ctypes.c_int
     lib.blend_bwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_bwd_error_string.restype = ctypes.c_char_p
@@ -100,21 +146,57 @@ def _check_rows(name, t, dtype, rows, num_tiles, device):
                          f"{tuple(t.shape)}")
 
 
+def _check_segments(segments, num_tiles, device):
+    """Device, type and shape checks of a ``Segments``; returns the item
+    count."""
+    if segments is None:
+        raise ValueError("segments (segment_layout of the counts) is "
+                         "required in training mode")
+    _check("ckpt_off", segments.ckpt_off, torch.int32, 1, device)
+    _check("items", segments.items, torch.int32, 2, device)
+    _check("ckpt", segments.ckpt, torch.float32, 3, device)
+    n_items = segments.items.shape[0]
+    if segments.ckpt_off.shape[0] != num_tiles \
+            or segments.items.shape[1] != 2 or tuple(
+            segments.ckpt.shape) != (n_items - num_tiles, NCKPT, PIX):
+        raise ValueError(f"segments {tuple(segments.ckpt_off.shape)}/"
+                         f"{tuple(segments.items.shape)}/"
+                         f"{tuple(segments.ckpt.shape)} do not fit "
+                         f"{num_tiles} tiles")
+    return n_items
+
+
+def _check_train(records, segments, g_state, state, num_tiles, dev):
+    """Checks of the training inputs of a backward kernel; returns the
+    item count."""
+    _check_rows("state", state, torch.float32, NSTATE, num_tiles, dev)
+    _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+    _check_rows("g_state", g_state, torch.float32, NSTATE, num_tiles, dev)
+    return _check_segments(segments, num_tiles, dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               tile_start: torch.Tensor, tile_count: torch.Tensor,
               grid_x: int, chunk: int = 64,
-              records: torch.Tensor | None = None) -> torch.Tensor:
+              records: torch.Tensor | None = None,
+              segments: Segments | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
     [T, NSTATE, PIX] float32.
 
-    ``records`` ([T, NREC, PIX] int32, optional) receives K1's training
-    records for K2: per pixel the position in its tile's pair list of the
-    last blended pair and of the median pair (-1 for none).  On CPU
-    tensors this is ``blend_tiles_plain`` (which steps ``chunk`` pairs at
-    a time) and ``records`` is left as it is, since the plain backward
-    needs none; on CUDA tensors it launches the kernel, which stages its
-    own 256-pair batches, or raises.
+    Training mode (``records`` [T, NREC, PIX] int32 and ``segments``,
+    ``segment_layout(tile_count)``, both given): K1 also writes K2's
+    inputs, per pixel the position in its tile's pair list of the last
+    blended pair and of the median pair (-1 for none) into ``records``,
+    and its accumulators at every SEG-th pair into ``segments.ckpt``.  On
+    CPU tensors this is ``blend_tiles_plain`` (which steps ``chunk`` pairs
+    at a time) and ``records`` and ``segments`` are left as they are,
+    since the plain backward needs neither; on CUDA tensors it launches
+    the kernel, which stages its own 256-pair batches, or raises.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -124,8 +206,11 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         raise ValueError(f"blend_fwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
                              grid_x)
+    ckpt = ckpt_off = None
     if records is not None:
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+        _check_segments(segments, num_tiles, dev)
+        ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
     lib = _lib()
@@ -134,8 +219,8 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         err = lib.blend_fwd_launch(
             feats_sorted.data_ptr(), pair_rank.data_ptr(),
             tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
-            state.data_ptr(),
-            None if records is None else records.data_ptr(), stream)
+            state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
+            stream)
     if err != 0:
         raise RuntimeError("blend_fwd kernel launch failed: "
                            + lib.blend_fwd_error_string(err).decode())
@@ -174,19 +259,192 @@ def blend_tiles_plain_vjp(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     return d_feats
 
 
+def pack_checkpoints(ck_tile: torch.Tensor, segments: Segments):
+    """The plain forward walk's checkpoints [T, n, NCKPT, PIX] (its k-th
+    is the state after pairs [0, (k+1)*seg)) in the kernels' layout
+    [n_bound, NCKPT, PIX]: tile t's from row ``ckpt_off[t]``."""
+    off = segments.ckpt_off.long()
+    n_bound = segments.ckpt.shape[0]
+    n_ck = torch.diff(torch.cat([off, off.new_tensor([n_bound])]))
+    tile = torch.repeat_interleave(torch.arange(off.numel(),
+                                                device=off.device), n_ck)
+    return ck_tile[tile, torch.arange(n_bound, device=off.device)
+                   - off[tile]]
+
+
+def suffix_sums(post: torch.Tensor, final: torch.Tensor,
+                g_state: torch.Tensor, med_w: torch.Tensor,
+                med_after: torch.Tensor):
+    """The running sums of the backward walk at a boundary e, in closed
+    form: ``post`` and ``final`` [..., NCKPT, P] are the checkpoint rows
+    (CKPT_ROWS) after pairs [0, e) and after all pairs, ``g_state``
+    [..., NSTATE, P] the cotangent, ``med_w`` [..., P] the final median
+    weight and ``med_after`` [..., P] whether the median pair is at or
+    past e.  Returns (sum_w, sum_wm, Q): the sums of w and w*m over the
+    blended pairs from e on and their transmittance adjoint with the
+    T-output term (csrc/blend_bwd.cu)."""
+    t_f, d1_f, d2_f = final[..., 0, :], final[..., 1, :], final[..., 2, :]
+    sum_w = post[..., 0, :] - t_f
+    sum_wm = d1_f - post[..., 1, :]
+    diff = final - post
+    # colour, depth and normal: checkpoint rows 3-9 are state rows 4-10
+    q = g_state[..., 0, :] * t_f + torch.sum(
+        g_state[..., 4:11, :] * diff[..., 3:10, :], dim=-2)
+    q = q + g_state[..., 11, :] * (diff[..., 10, :] - sum_wm * sum_wm
+                                   - t_f * (d2_f - post[..., 2, :]))
+    q = q + torch.where(med_after, g_state[..., ROW_MED_W, :] * med_w, 0.0)
+    return sum_w, sum_wm, q
+
+
+def blend_bwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,
+                             grid_x: int, g_state: torch.Tensor,
+                             seg: int = SEG, chunk: int = 64) -> torch.Tensor:
+    """Plain emulation of K2/K4's algorithm at segment length ``seg``:
+    the gradient of <state, g_state> in a tile's pair rows, rows [T, L,
+    NFEAT] (row i of tile t its i-th pair; only rows < counts[t] are
+    blended) -> [T, L, NFEAT].
+
+    The plain forward walk writes the checkpoints at every ``seg``-th
+    pair and the per-pixel records; ``segment_layout`` packs them and
+    lists the work items; each item takes its post-state from its
+    checkpoint (or the final state), its running sums from
+    ``suffix_sums`` and walks its segment back to front with the
+    kernel's arithmetic, all items at once.  The cotangents of
+    ``DEAD_ROWS`` are not read.  For the CPU tests of the algorithm."""
+    num_tiles, cap, _ = rows.shape
+    dev = rows.device
+    step = math.gcd(chunk, seg)
+    lane = torch.arange(step, device=dev)
+    tiles = torch.arange(num_tiles, device=dev)
+    state, ck_tile, records = blend_walk(
+        lambda c0: rows[:, torch.clamp_max(c0 + lane, cap - 1)], counts,
+        grid_x, step, tiles, checkpoints=seg)
+    lay = segment_layout(counts, seg)
+    off = lay.ckpt_off.long()
+    n_bound = lay.ckpt.shape[0]
+    ckpt = pack_checkpoints(ck_tile, lay)
+
+    t, s = lay.items.long().unbind(1)
+    last = records[t, 0].long()
+    med = records[t, 1].long()
+    n_walk = (records[:, 0].amax(dim=1).long() + 1)[t]
+    s0 = s * seg
+    s1 = torch.minimum(s0 + seg, n_walk)
+    final = state[t][:, list(CKPT_ROWS)]
+    g = g_state[t]
+    has_ck = (s1 < n_walk)[:, None, None]
+    post = final if n_bound == 0 else torch.where(
+        has_ck, ckpt[torch.clamp(off[t] + s, 0, n_bound - 1)], final)
+    sum_w, sum_wm, Q = suffix_sums(post, final, g, state[t, ROW_MED_W],
+                                   med >= s1[:, None])
+    T, D1, D2 = post[:, 0], post[:, 1], post[:, 2]
+    gT, g_dist = g[:, 0], g[:, 11]
+    gc, g_depth, gn = g[:, 4:7], g[:, 7], g[:, 8:11]
+    g_med_d, g_med_w = g[:, 12], g[:, 13]
+    pix = _tile_pixels(grid_x, t)
+    px, py = pix[..., 0], pix[..., 1]
+    d_rows = torch.zeros_like(rows)
+    for j in range(seg - 1, -1, -1):
+        p = s0 + j
+        f = rows[t, torch.clamp(p, 0, cap - 1)][:, :, None]      # [I,18,1]
+        walk = (p < s1)[:, None] & (p[:, None] <= last)
+        # ray-splat intersection, as csrc/blend_bwd.cu
+        kx, ky, kz = px * f[:, 6] - f[:, 0], px * f[:, 7] - f[:, 1], \
+            px * f[:, 8] - f[:, 2]
+        lx, ly, lz = py * f[:, 6] - f[:, 3], py * f[:, 7] - f[:, 4], \
+            py * f[:, 8] - f[:, 5]
+        p_x = ky * lz - kz * ly
+        p_y = kz * lx - kx * lz
+        p_z = kx * ly - ky * lx
+        good = p_z != 0.0
+        inv_pz = 1.0 / torch.where(good, p_z, 1.0)
+        sx, sy = p_x * inv_pz, p_y * inv_pz
+        rho3d = sx * sx + sy * sy
+        dx, dy = f[:, 9] - px, f[:, 10] - py
+        rho2d = FILTER_INV_SQUARE * (dx * dx + dy * dy)
+        use3d = rho3d <= rho2d
+        depth = torch.where(use3d, sx * f[:, 6] + sy * f[:, 7] + f[:, 8],
+                            f[:, 8])
+        E = torch.exp(-0.5 * torch.minimum(rho3d, rho2d))
+        raw = f[:, 17] * E
+        alpha = torch.clamp_max(raw, ALPHA_CLIP)
+        blended = walk & good & (depth >= NEAR_PLANE) & (alpha >= ALPHA_CUTOFF)
+        # pre-blend state and the cotangents, as csrc/blend_bwd.cu
+        om = 1.0 - torch.where(blended, alpha, 0.0)
+        Tb = T / om
+        w = alpha * Tb
+        safe_d = torch.where(depth != 0.0, depth, 1.0)
+        m = (FAR_PLANE * depth - FAR_PLANE * NEAR_PLANE) / (
+            (FAR_PLANE - NEAR_PLANE) * safe_d)
+        wm = w * m
+        D1b = D1 - wm
+        D2b = D2 - wm * m
+        err = m * m * (1.0 - Tb) + D2b - 2.0 * m * D1b
+        is_med = med == p[:, None]
+        S1 = -2.0 * g_dist * sum_wm
+        S2 = g_dist * sum_w
+        wbar = (gc[:, 0] * f[:, 14] + gc[:, 1] * f[:, 15] + gc[:, 2] * f[:, 16]
+                + gn[:, 0] * f[:, 11] + gn[:, 1] * f[:, 12]
+                + gn[:, 2] * f[:, 13] + g_depth * depth + g_dist * err
+                + m * S1 + m * m * S2 + torch.where(is_med, g_med_w, 0.0))
+        mbar = w * S1 + 2.0 * wm * S2 \
+            + g_dist * w * (2.0 * m * (1.0 - Tb) - 2.0 * D1b)
+        dm_dd = FAR_PLANE * NEAR_PLANE / ((FAR_PLANE - NEAR_PLANE)
+                                          * safe_d * safe_d)
+        dbar = g_depth * w + mbar * dm_dd + torch.where(is_med, g_med_d, 0.0)
+        abar = wbar * Tb - Q / om
+        raw_bar = torch.where(raw < ALPHA_CLIP, abar, 0.0)
+        rho_bar = -0.5 * raw_bar * raw
+        r3b = torch.where(use3d, rho_bar, 0.0)
+        r2b = rho_bar - r3b
+        dbm = torch.where(use3d, dbar, 0.0)
+        sx_bar = dbm * f[:, 6] + 2.0 * r3b * sx
+        sy_bar = dbm * f[:, 7] + 2.0 * r3b * sy
+        pxb, pyb = sx_bar * inv_pz, sy_bar * inv_pz
+        pzb = -(sx_bar * sx + sy_bar * sy) * inv_pz
+        kx_b, ky_b, kz_b = pzb * ly - pyb * lz, pxb * lz - pzb * lx, \
+            pyb * lx - pxb * ly
+        lx_b, ly_b, lz_b = pyb * kz - pzb * ky, pzb * kx - pxb * kz, \
+            pxb * ky - pyb * kx
+        grads = torch.stack([
+            -kx_b, -ky_b, -kz_b, -lx_b, -ly_b, -lz_b,
+            kx_b * px + lx_b * py + dbm * sx,
+            ky_b * px + ly_b * py + dbm * sy,
+            kz_b * px + lz_b * py + dbar,
+            2.0 * FILTER_INV_SQUARE * r2b * dx,
+            2.0 * FILTER_INV_SQUARE * r2b * dy,
+            w * gn[:, 0], w * gn[:, 1], w * gn[:, 2],
+            w * gc[:, 0], w * gc[:, 1], w * gc[:, 2], raw_bar * E], dim=-1)
+        grads = torch.where(blended[..., None], grads, 0.0).sum(dim=1)
+        in_seg = p < s1
+        d_rows.index_put_((t[in_seg], p[in_seg]), grads[in_seg],
+                          accumulate=True)
+        Q = torch.where(blended, Q + wbar * w - g_dist * wm * m * Tb, Q)
+        sum_w = torch.where(blended, sum_w + w, sum_w)
+        sum_wm = torch.where(blended, sum_wm + wm, sum_wm)
+        T = torch.where(blended, Tb, T)
+        D1 = torch.where(blended, D1b, D1)
+        D2 = torch.where(blended, D2b, D2)
+    return d_rows
+
+
 def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               tile_start: torch.Tensor, tile_count: torch.Tensor,
               grid_x: int, state: torch.Tensor, records: torch.Tensor,
-              g_state: torch.Tensor, chunk: int = 64,
-              n_reduce: torch.Tensor | None = None) -> torch.Tensor:
-    """Gradient of the blend in feats_sorted: K1's inputs, its ``state``
-    and ``records``, and the cotangent ``g_state`` [T, NSTATE, PIX] ->
-    d_feats_sorted [N, NFEAT] float32.
+              g_state: torch.Tensor, segments: Segments | None = None,
+              chunk: int = 64, n_reduce: torch.Tensor | None = None,
+              item_ns: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the blend in feats_sorted: K1's inputs, its ``state``,
+    ``records`` and ``segments`` (training mode), and the cotangent
+    ``g_state`` [T, NSTATE, PIX] -> d_feats_sorted [N, NFEAT] float32.
 
-    On CPU tensors this is ``blend_tiles_plain_vjp`` (``state`` and
-    ``records`` unused); on CUDA tensors it launches the kernel or raises.
+    On CPU tensors this is ``blend_tiles_plain_vjp`` (``state``,
+    ``records`` and ``segments`` unused); on CUDA tensors it launches the
+    kernel, one CTA per work item of ``segments``, or raises.
     ``n_reduce`` (optional int64 [1] on the card) is incremented by the
-    number of (warp, pair) sums the kernel issued, 18 atomics each.
+    number of (warp, pair) sums the kernel issued, 18 atomics each;
+    ``item_ns`` (optional int64 [I, 2]) receives each work item's
+    %globaltimer stamps at its start and end.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain_vjp(feats_sorted, pair_rank, tile_start,
@@ -196,20 +454,24 @@ def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         raise ValueError(f"blend_bwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
                              grid_x)
-    _check_rows("state", state, torch.float32, NSTATE, num_tiles, dev)
-    _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
-    _check_rows("g_state", g_state, torch.float32, NSTATE, num_tiles, dev)
+    n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
     if n_reduce is not None:
         _check("n_reduce", n_reduce, torch.int64, 1, dev)
+    if item_ns is not None:
+        _check("item_ns", item_ns, torch.int64, 2, dev)
+        if tuple(item_ns.shape) != (n_items, 2):
+            raise ValueError(f"item_ns must be [{n_items}, 2]")
     d_feats = torch.zeros_like(feats_sorted)
     lib = _lib_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.blend_bwd_launch(
             feats_sorted.data_ptr(), pair_rank.data_ptr(),
-            tile_start.data_ptr(), num_tiles, grid_x, state.data_ptr(),
-            records.data_ptr(), g_state.data_ptr(), d_feats.data_ptr(),
-            None if n_reduce is None else n_reduce.data_ptr(), stream)
+            tile_start.data_ptr(), n_items, grid_x,
+            segments.items.data_ptr(), segments.ckpt_off.data_ptr(),
+            segments.ckpt.data_ptr(), state.data_ptr(), records.data_ptr(),
+            g_state.data_ptr(), d_feats.data_ptr(), _ptr(n_reduce),
+            _ptr(item_ns), stream)
     if err != 0:
         raise RuntimeError("blend_bwd kernel launch failed: "
                            + lib.blend_bwd_error_string(err).decode())
@@ -230,18 +492,21 @@ class BlendTiles(torch.autograd.Function):
                 grid_x, chunk=64):
         records = torch.empty((tile_start.shape[0], NREC, PIX),
                               dtype=torch.int32, device=feats_sorted.device)
+        segments = segment_layout(tile_count)
         state = blend_fwd(feats_sorted, pair_rank, tile_start, tile_count,
-                          grid_x, chunk=chunk, records=records)
+                          grid_x, chunk=chunk, records=records,
+                          segments=segments)
         ctx.save_for_backward(feats_sorted, pair_rank, tile_start,
-                              tile_count, state, records)
+                              tile_count, state, records, *segments)
         ctx.grid_x, ctx.chunk = grid_x, chunk
         return state
 
     @staticmethod
     def backward(ctx, g_state):
-        feats_sorted, pair_rank, tile_start, tile_count, state, records = \
-            ctx.saved_tensors
+        feats_sorted, pair_rank, tile_start, tile_count, state, records, \
+            *segments = ctx.saved_tensors
         d_feats = blend_bwd(feats_sorted, pair_rank, tile_start, tile_count,
                             ctx.grid_x, state, records,
-                            g_state.contiguous(), chunk=ctx.chunk)
+                            g_state.contiguous(), Segments(*segments),
+                            chunk=ctx.chunk)
         return d_feats, None, None, None, None, None

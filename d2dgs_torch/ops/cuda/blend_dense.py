@@ -7,7 +7,8 @@ the autograd function that pairs them, and their plain PyTorch versions
 K3 replaces ``_fwd_kernel``: tile t blends rows [0, counts[t]) of its own
 slab of the dense pair buffer gdata [T, tile_cap, NFEAT] into the state
 rows [T, NSTATE, PIX].  K4 replaces ``_bwd_kernel``: the gradient of those
-state rows in gdata, [T, tile_cap, NFEAT], zero past counts[t].  The sum
+state rows in gdata, [T, tile_cap, NFEAT], zero past counts[t], one work
+item per (tile, SEG-pair segment) as K2.  The sum
 per Gaussian over its tiles is autograd's transpose of the gather in
 ``build_gdata``, as XLA's is in the JAX package.  K3/K4 share their device
 code with K1/K2, so both routes make the same decisions bit for bit.
@@ -18,7 +19,9 @@ import torch
 
 from ..binning import Binning
 from ..tiled_raster import NFEAT, NSTATE, PIX, blend_walk
-from .blend import DEAD_ROWS, NREC, _check, _check_rows, _lib, _lib_bwd
+from .blend import (DEAD_ROWS, NREC, Segments, _check, _check_rows,
+                    _check_segments, _check_train, _lib, _lib_bwd, _ptr,
+                    segment_layout)
 
 
 def build_gdata(feats: torch.Tensor, binning: Binning, tile_cap: int):
@@ -118,23 +121,27 @@ def _check_dense(gdata, counts, grid_x):
 
 
 def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
-                    chunk: int = 64,
-                    records: torch.Tensor | None = None) -> torch.Tensor:
+                    chunk: int = 64, records: torch.Tensor | None = None,
+                    segments: Segments | None = None) -> torch.Tensor:
     """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
     int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
 
-    ``records`` ([T, NREC, PIX] int32, optional) receives K3's training
-    records for K4, as K1's for K2.  On CPU tensors this is
-    ``blend_dense_plain`` and ``records`` is left as it is; on CUDA tensors
-    it launches K3 or raises."""
+    Training mode (``records`` [T, NREC, PIX] int32 and ``segments``,
+    ``segment_layout(counts)``): K3 also writes K4's records and
+    checkpoints, as K1 for K2.  On CPU tensors this is
+    ``blend_dense_plain`` and ``records`` and ``segments`` are left as
+    they are; on CUDA tensors it launches K3 or raises."""
     if gdata.device.type == "cpu":
         return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
     dev = gdata.device
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_fwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
+    ckpt = ckpt_off = None
     if records is not None:
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+        _check_segments(segments, num_tiles, dev)
+        ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
     lib = _lib()
@@ -142,8 +149,8 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.blend_dense_fwd_launch(
             gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x,
-            state.data_ptr(),
-            None if records is None else records.data_ptr(), stream)
+            state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
+            stream)
     if err != 0:
         raise RuntimeError("blend_dense_fwd kernel launch failed: "
                            + lib.blend_fwd_error_string(err).decode())
@@ -156,16 +163,18 @@ blend_dense_fwd.launches = 0
 
 def blend_dense_bwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
                     state: torch.Tensor, records: torch.Tensor,
-                    g_state: torch.Tensor, chunk: int = 64,
-                    n_reduce: torch.Tensor | None = None) -> torch.Tensor:
-    """Gradient of the dense blend in gdata: K3's inputs, its ``state`` and
-    ``records``, and the cotangent ``g_state`` [T, NSTATE, PIX] ->
-    d_gdata [T, cap, NFEAT] float32, zero past counts[t].
+                    g_state: torch.Tensor, segments: Segments | None = None,
+                    chunk: int = 64, n_reduce: torch.Tensor | None = None,
+                    item_ns: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the dense blend in gdata: K3's inputs, its ``state``,
+    ``records`` and ``segments`` (training mode), and the cotangent
+    ``g_state`` [T, NSTATE, PIX] -> d_gdata [T, cap, NFEAT] float32, zero
+    past counts[t].
 
-    On CPU tensors this is ``blend_dense_plain_vjp`` (``state`` and
-    ``records`` unused); on CUDA tensors it launches K4 or raises.
-    ``n_reduce`` (optional int64 [1] on the card) is incremented by the
-    number of (warp, pair) sums the kernel issued, 18 atomics each."""
+    On CPU tensors this is ``blend_dense_plain_vjp`` (``state``,
+    ``records`` and ``segments`` unused); on CUDA tensors it launches K4,
+    one CTA per work item, or raises.  ``n_reduce`` and ``item_ns`` as
+    for ``blend_bwd``."""
     if gdata.device.type == "cpu":
         return blend_dense_plain_vjp(gdata, counts, grid_x, g_state,
                                      chunk=chunk)
@@ -173,19 +182,23 @@ def blend_dense_bwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_bwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
-    _check_rows("state", state, torch.float32, NSTATE, num_tiles, dev)
-    _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
-    _check_rows("g_state", g_state, torch.float32, NSTATE, num_tiles, dev)
+    n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
     if n_reduce is not None:
         _check("n_reduce", n_reduce, torch.int64, 1, dev)
+    if item_ns is not None:
+        _check("item_ns", item_ns, torch.int64, 2, dev)
+        if tuple(item_ns.shape) != (n_items, 2):
+            raise ValueError(f"item_ns must be [{n_items}, 2]")
     d_gdata = torch.zeros_like(gdata)
     lib = _lib_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.blend_dense_bwd_launch(
-            gdata.data_ptr(), cap, num_tiles, grid_x, state.data_ptr(),
-            records.data_ptr(), g_state.data_ptr(), d_gdata.data_ptr(),
-            None if n_reduce is None else n_reduce.data_ptr(), stream)
+            gdata.data_ptr(), cap, n_items, grid_x,
+            segments.items.data_ptr(), segments.ckpt_off.data_ptr(),
+            segments.ckpt.data_ptr(), state.data_ptr(), records.data_ptr(),
+            g_state.data_ptr(), d_gdata.data_ptr(), _ptr(n_reduce),
+            _ptr(item_ns), stream)
     if err != 0:
         raise RuntimeError("blend_dense_bwd kernel launch failed: "
                            + lib.blend_bwd_error_string(err).decode())
@@ -205,15 +218,17 @@ class BlendTilesDense(torch.autograd.Function):
     def forward(ctx, gdata, counts, grid_x, chunk=64):
         records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
                               device=gdata.device)
+        segments = segment_layout(counts)
         state = blend_dense_fwd(gdata, counts, grid_x, chunk=chunk,
-                                records=records)
-        ctx.save_for_backward(gdata, counts, state, records)
+                                records=records, segments=segments)
+        ctx.save_for_backward(gdata, counts, state, records, *segments)
         ctx.grid_x, ctx.chunk = grid_x, chunk
         return state
 
     @staticmethod
     def backward(ctx, g_state):
-        gdata, counts, state, records = ctx.saved_tensors
+        gdata, counts, state, records, *segments = ctx.saved_tensors
         d_gdata = blend_dense_bwd(gdata, counts, ctx.grid_x, state, records,
-                                  g_state.contiguous(), chunk=ctx.chunk)
+                                  g_state.contiguous(), Segments(*segments),
+                                  chunk=ctx.chunk)
         return d_gdata, None, None, None

@@ -38,6 +38,11 @@ ROW_MED_D = 12
 ROW_MED_W = 13
 ROW_N_EVAL = 14        # pairs evaluated per pixel (work counter)
 ROW_N_BLEND = 15       # pairs blended per pixel (work counter)
+# the running accumulators a training forward checkpoints (T, dist1,
+# dist2, colour, depth, normal, distortion), in csrc/blend_fwd.cu's order
+CKPT_ROWS = (ROW_T, ROW_D1, ROW_D2, 4, 5, 6, ROW_DEPTH, 8, 9, 10,
+             ROW_DISTORTION)
+NCKPT = len(CKPT_ROWS)
 
 
 def _tile_pixels(grid_x: int, tile_ids: torch.Tensor) -> torch.Tensor:
@@ -60,20 +65,35 @@ def pack_features(Tmat, center, normal, colors, opacity) -> torch.Tensor:
 
 
 def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
-               tile_ids: torch.Tensor) -> torch.Tensor:
+               tile_ids: torch.Tensor, checkpoints: int | None = None):
     """Blend each of T tiles' first ``count[t]`` pairs, ``chunk`` at a
     time: ``chunk_rows(c0)`` gives the features [T, chunk, NFEAT] of rows
     c0..c0+chunk-1 of every tile (any values past a tile's count);
     ``tile_ids`` [T] the tiles' grid indices.  Returns the state rows
-    [T, NSTATE, PIX]."""
+    [T, NSTATE, PIX].
+
+    With ``checkpoints=seg`` (a multiple of ``chunk``) it returns
+    ``(rows, ckpt, records)``, the training mode of the kernels: ckpt
+    [T, n, NCKPT, PIX] holds rows ``CKPT_ROWS`` of the state after pairs
+    [0, k*seg) for k = 1..n, n = ceil(max(count) / seg) - 1 (a tile's
+    final state past its own count), and records [T, 2, PIX] int32 the
+    position of each pixel's last blended pair and of its median pair
+    (-1 for none)."""
     num_tiles = count.shape[0]
     dev = tile_ids.device
     pix = _tile_pixels(grid_x, tile_ids)                    # [T,P,2]
-    state = B.init_state((num_tiles, PIX), device=dev)
+    state = B.init_state((num_tiles, PIX), device=dev,
+                         positions=checkpoints is not None)
     count = count.long()
     max_count = int(count.max()) if num_tiles else 0
+    if checkpoints is not None and checkpoints % chunk:
+        raise ValueError(f"checkpoints={checkpoints} is not a multiple of "
+                         f"chunk={chunk}")
+    ckpt = []
     lane = torch.arange(chunk, device=dev)
     for c0 in range(0, max_count, chunk):
+        if checkpoints is not None and c0 and c0 % checkpoints == 0:
+            ckpt.append(_state_rows(state)[:, list(CKPT_ROWS)])
         in_range = lane[None, :] < (count - c0)[:, None]
         g = chunk_rows(c0)                                   # [T,chunk,NFEAT]
         opac = torch.where(in_range, g[..., 17], 0.0)
@@ -82,7 +102,19 @@ def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
             opac, pix)
         state = B.blend_chunk(state, alpha, depth, g[..., 14:17],
                               g[..., 11:14],
-                              n_rows=torch.clamp(count - c0, 0, chunk))
+                              n_rows=torch.clamp(count - c0, 0, chunk),
+                              offset=c0)
+    rows = _state_rows(state)
+    if checkpoints is None:
+        return rows
+    ckpt = torch.stack(ckpt, dim=1) if ckpt else \
+        rows.new_zeros((num_tiles, 0, NCKPT, PIX))
+    records = torch.stack([state.last, state.med], dim=1).to(torch.int32)
+    return rows, ckpt, records
+
+
+def _state_rows(state) -> torch.Tensor:
+    """BlendState -> the state rows [T, NSTATE, PIX]."""
     rows = [state.T, state.done.to(torch.float32), state.dist1, state.dist2,
             *state.color.unbind(-1), state.depth, *state.normal.unbind(-1),
             state.distortion, state.med_depth, state.med_weight,

@@ -36,16 +36,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(opaque, dev):
+def _scene(opaque, dev, packed=False):
     """48x64 view of 160 random splats (the shapes of
-    tests/test_pallas_blend.py), optionally all at opacity 0.999."""
-    n = 160
+    tests/test_pallas_blend.py), optionally all at opacity 0.999; or 700
+    splats packed near the view centre (``packed``: its busiest tile
+    walks more than two 256-pair backward segments)."""
+    n, spread, bias = (700, 0.15, -1.0) if packed else (160, 0.5, 1.0)
     rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * 0.5
+    means = rs.normal(size=(n, 3)) * spread
     scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
     quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
     quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + 1.0)))
+    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
     if opaque:
         opac = np.full(n, 0.999)    # saturates T: early termination
     colors = rs.uniform(size=(n, 3))
@@ -212,3 +214,74 @@ def test_dense_kernels_match_plain_on_gpu(cuda, opaque, tile_cap):
         blend_dense_fwd(gdata, counts[:-1], gx)
     with pytest.raises(TypeError, match="gdata"):
         blend_dense_fwd(gdata.double(), counts, gx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["wq", "dense"])
+def test_segmented_backward_on_packed_scene(cuda, route):
+    """The packed scene, whose busiest tile spans three backward
+    segments: K1/K3 in training mode write the plain forward walk's
+    records and checkpoints (and the serving state), and K2/K4 from them
+    match their plain versions."""
+    from d2dgs_torch.ops.cuda.blend import (NREC, SEG, pack_checkpoints,
+                                            segment_layout)
+    from d2dgs_torch.ops.cuda.blend_dense import (BlendTilesDense,
+                                                  blend_dense_bwd,
+                                                  blend_dense_fwd,
+                                                  blend_dense_plain_vjp)
+    from d2dgs_torch.ops.tiled_raster import CKPT_ROWS, PIX, blend_walk
+    cam, arrs = _scene(False, cuda, packed=True)
+    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    fs, rank, start, count, _ = _kernel_args(cam, *arrs)
+    num_tiles = counts.shape[0]
+    seg = segment_layout(counts)
+    records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
+                          device=cuda)
+    if route == "wq":
+        args = (fs, rank, start, count, gx)
+        state = blend_fwd(*args, records=records, segments=seg)
+        serve = blend_fwd(*args)
+    else:
+        state = blend_dense_fwd(gdata, counts, gx, records=records,
+                                segments=seg)
+        serve = blend_dense_fwd(gdata, counts, gx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(state, serve, rtol=0, atol=0)
+    cap = gdata.shape[1]
+    lane = torch.arange(64, device=cuda)
+    _, ck_plain, rec_plain = blend_walk(
+        lambda c0: gdata[:, torch.clamp_max(c0 + lane, cap - 1)], counts, gx,
+        64, torch.arange(num_tiles, device=cuda), checkpoints=SEG)
+    n_walk = int(records[:, 0].max()) + 1
+    assert n_walk > 2 * SEG, "the scene must span three segments"
+    torch.testing.assert_close(records[:, 0], rec_plain[:, 0], rtol=0,
+                               atol=0)
+    assert int((records[:, 1] != rec_plain[:, 1]).sum()) <= 2
+    ck = pack_checkpoints(ck_plain, seg)
+    for r in range(len(CKPT_ROWS)):
+        tol = IMG if CKPT_ROWS[r] in (0, 4, 5, 6) else AUX
+        torch.testing.assert_close(seg.ckpt[:, r], ck[:, r], **tol)
+
+    g = torch.randn(state.shape, generator=torch.Generator().manual_seed(3))
+    g = g.to(cuda)
+    if route == "wq":
+        f = fs.clone().requires_grad_()
+        before = blend_bwd.launches
+        d_kernel, = torch.autograd.grad(BlendTiles.apply(f, rank, start,
+                                                         count, gx), f, g)
+        torch.cuda.synchronize()
+        assert blend_bwd.launches == before + 1
+        d_plain = blend_tiles_plain_vjp(fs, rank, start, count, gx, g)
+        scale = d_plain.abs().amax(dim=0) + 1e-8
+    else:
+        f = gdata.clone().requires_grad_()
+        before = blend_dense_bwd.launches
+        d_kernel, = torch.autograd.grad(BlendTilesDense.apply(f, counts, gx),
+                                        f, g)
+        torch.cuda.synchronize()
+        assert blend_dense_bwd.launches == before + 1
+        d_plain = blend_dense_plain_vjp(gdata, counts, gx, g)
+        scale = d_plain.abs().amax(dim=(0, 1)) + 1e-8
+        past = torch.arange(cap, device=cuda)[None, :] >= counts[:, None]
+        assert not bool(d_kernel[past].any())
+    torch.testing.assert_close(d_kernel / scale, d_plain / scale, **GRAD)
