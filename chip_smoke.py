@@ -129,23 +129,12 @@ SMALL_SCENES = ("48x64", "48x64 opaque", "48x64 packed")
 
 
 def small_scene(label: str):
-    """48x64 views: 160 random splats (the shapes of the JAX package's
-    blend-kernel tests), the same all at opacity 0.999 ("opaque"), and 700
-    splats packed near the view centre ("packed": its busiest tile holds
-    626 pairs, three backward segments)."""
-    n, spread, bias = (700, 0.15, -1.0) if label.endswith("packed") else \
-        (160, 0.5, 1.0)
-    rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * spread
-    scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
-    quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
-    if label.endswith("opaque"):
-        opac = np.full(n, 0.999)
-    colors = rs.uniform(size=(n, 3))
-    f32 = lambda a: np.asarray(a, np.float32)
-    return tuple(map(f32, (means, scales, quats, opac, colors)))
+    """The 48x64 check scene of ``label`` (SMALL_SCENES):
+    ``data/synthetic.blend_test_scene``, whose packed scene spans three
+    backward segments."""
+    from d2dgs_torch.data.synthetic import blend_test_scene
+    kind = label.split()[1] if " " in label else "pallas"
+    return blend_test_scene(kind)
 
 
 def splat_inputs(means3d, scales, quats, opacity, colors, valid_mask, cam,
@@ -545,8 +534,9 @@ def bwd_bound(state, records, in_bytes: int, out_bytes: int,
     """Least time of a blend backward (K2 or K4): float32 operations of
     the pairs each pixel walks and blends, against the feature bytes read
     (``in_bytes``) and the gradient bytes written (``out_bytes``) once,
-    the state, records and cotangent rows read per pixel, and the atomics
-    issued."""
+    the state, records and cotangent rows read per pixel, and the global
+    atomics of ``n_reduce`` warp sums, NFEAT each (K2's; K4 stores each
+    row once, inside ``out_bytes``, so it passes 0)."""
     from d2dgs_torch.ops.cuda.blend import REC_LAST
     from d2dgs_torch.ops.tiled_raster import NFEAT, PIX, ROW_N_BLEND
     n_eval = float((records[:, REC_LAST].to(torch.float64) + 1.0).sum())
@@ -829,8 +819,7 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     del gd, d_gdata, f
     row_bytes = dense_row_bytes(counts)
     b3 = fwd_bound(state, row_bytes)
-    b4 = bwd_bound(state, records, row_bytes, gdata.numel() * 4,
-                   int(n_reduce))
+    b4 = bwd_bound(state, records, row_bytes, gdata.numel() * 4, 0)
     res = {"k3_ms": k3_ms, "k3_train_ms": k3_train_ms, "k4_ms": k4_ms,
            "k3_plain_ms": k3_plain_ms, "k4_plain_ms": k4_plain_ms,
            "gather_ms": gather_ms, "gather_bwd_ms": float(np.mean(back[1:])),

@@ -75,8 +75,9 @@
 // same as the per-tile walk's, spread over ~1,300 items instead of ~470
 // tiles), and a tail of one SEG-pair item.  Bytes are small: the feature
 // rows, the pair ranks (K2), per pixel and item the state, checkpoint and
-// cotangent rows, and the atomics; K4 also has its [T, tile_cap, NFEAT]
-// output, zeroed by the wrapper.
+// cotangent rows, and K2's atomics; K4 has no atomics but its
+// [T, tile_cap, NFEAT] output, zeroed by the wrapper, which bounds it by
+// bytes.
 //
 // The cotangents of the done, final dist1, final dist2 and counter rows
 // are taken as zero, as the TPU kernel does (nothing downstream reads

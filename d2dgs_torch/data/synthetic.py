@@ -31,6 +31,31 @@ def random_gaussians(seed: int, n: int, extent: float = 1.0,
                  for a in (means, scales, quats, opac, colors))
 
 
+def blend_test_scene(kind: str, n_packed: int = 700):
+    """The blend kernels' check scenes, seen from ``orbit_camera(0.4, 0.3,
+    3.0, fov=0.8)`` at 48x64: "pallas", 160 random splats (the shapes of
+    the JAX package's blend-kernel tests); "opaque", the same at opacity
+    0.999 (early termination); "packed", ``n_packed`` splats packed near
+    the view centre (at 700 its busiest tile holds 626 pairs, three
+    256-pair backward segments).  Returns (means, scales, quats, opacity,
+    colours) float32 numpy arrays."""
+    if kind not in ("pallas", "opaque", "packed"):
+        raise ValueError(f"unknown blend test scene {kind!r}")
+    n, spread, bias = (n_packed, 0.15, -1.0) if kind == "packed" else \
+        (160, 0.5, 1.0)
+    rs = np.random.RandomState(0)
+    means = rs.normal(size=(n, 3)) * spread
+    scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
+    quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
+    if kind == "opaque":
+        opac = np.full(n, 0.999)
+    colors = rs.uniform(size=(n, 3))
+    return tuple(np.asarray(a, np.float32)
+                 for a in (means, scales, quats, opac, colors))
+
+
 def test_camera(H: int = 64, W: int = 64, radius: float = 4.0,
                 azimuth: float = 0.3, elevation: float = 0.2,
                 time: float = 0.0, device="cuda") -> Camera:

@@ -50,10 +50,17 @@ class Segments(NamedTuple):
     is segment s = ``items[i, 1]`` (pairs [s*seg, (s+1)*seg)) of tile
     t = ``items[i, 0]``, whose walk starts from checkpoint
     ``ckpt_off[t] + s``, the state after pairs [0, (s+1)*seg), or from
-    the final state for the tile's last segment."""
+    the final state for the tile's last segment.  The kernels walk SEG-pair
+    segments and take no other ``seg``; the plain emulation takes any."""
     ckpt_off: torch.Tensor    # [T] int32: tile t's first checkpoint
     items: torch.Tensor       # [I, 2] int32 (tile, segment), I = T + n_bound
     ckpt: torch.Tensor        # [n_bound, NCKPT, PIX] float32
+    seg: int = SEG            # pairs per segment
+
+    @property
+    def tensors(self) -> tuple:
+        """The three tensors, to save for the backward."""
+        return self.ckpt_off, self.items, self.ckpt
 
 
 def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
@@ -61,7 +68,8 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
     checkpoint buffer for the pair counts ``counts`` [T] (as the blend
     kernels take them, clamped at tile_cap): tile t has
     max(0, ceil(count / seg) - 1) checkpoints.  The buffer is sized from
-    the counts, which costs one device-to-host read."""
+    the counts, which costs one device-to-host read.  The kernels take
+    only the default ``seg`` (SEG)."""
     dev = counts.device
     c = counts.long()
     n_ck = torch.clamp_min((c + seg - 1) // seg - 1, 0)
@@ -76,7 +84,7 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
                          - (tiles + off)[tile]], dim=1)
     return Segments(off.to(torch.int32), items.to(torch.int32),
                     torch.empty((n_bound, NCKPT, PIX), dtype=torch.float32,
-                                device=dev))
+                                device=dev), seg)
 
 
 @functools.cache
@@ -152,6 +160,9 @@ def _check_segments(segments, num_tiles, device):
     if segments is None:
         raise ValueError("segments (segment_layout of the counts) is "
                          "required in training mode")
+    if segments.seg != SEG:
+        raise ValueError(f"segments are laid out at {segments.seg}-pair "
+                         f"segments; the kernels walk {SEG}")
     _check("ckpt_off", segments.ckpt_off, torch.int32, 1, device)
     _check("items", segments.items, torch.int32, 2, device)
     _check("ckpt", segments.ckpt, torch.float32, 3, device)
@@ -497,7 +508,7 @@ class BlendTiles(torch.autograd.Function):
                           grid_x, chunk=chunk, records=records,
                           segments=segments)
         ctx.save_for_backward(feats_sorted, pair_rank, tile_start,
-                              tile_count, state, records, *segments)
+                              tile_count, state, records, *segments.tensors)
         ctx.grid_x, ctx.chunk = grid_x, chunk
         return state
 

@@ -221,7 +221,8 @@ class BlendTilesDense(torch.autograd.Function):
         segments = segment_layout(counts)
         state = blend_dense_fwd(gdata, counts, grid_x, chunk=chunk,
                                 records=records, segments=segments)
-        ctx.save_for_backward(gdata, counts, state, records, *segments)
+        ctx.save_for_backward(gdata, counts, state, records,
+                              *segments.tensors)
         ctx.grid_x, ctx.chunk = grid_x, chunk
         return state
 

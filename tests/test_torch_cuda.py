@@ -6,12 +6,12 @@ configures JAX) and the xdist options of pytest.ini:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -o addopts=""
 
 Every test skips where torch.cuda.is_available() is False."""
-import numpy as np
 import pytest
 import torch
 
 from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.cameras import orbit_camera
+from d2dgs_torch.data.synthetic import blend_test_scene
 from d2dgs_torch.ops.binning import bin_gaussians
 from d2dgs_torch.ops.cuda.blend import (DEAD_ROWS, BlendTiles, blend_bwd,
                                        blend_fwd, blend_tiles_plain_vjp)
@@ -38,22 +38,13 @@ def cuda():
 
 def _scene(opaque, dev, packed=False):
     """48x64 view of 160 random splats (the shapes of
-    tests/test_pallas_blend.py), optionally all at opacity 0.999; or 700
-    splats packed near the view centre (``packed``: its busiest tile
-    walks more than two 256-pair backward segments)."""
-    n, spread, bias = (700, 0.15, -1.0) if packed else (160, 0.5, 1.0)
-    rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * spread
-    scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
-    quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
-    if opaque:
-        opac = np.full(n, 0.999)    # saturates T: early termination
-    colors = rs.uniform(size=(n, 3))
+    tests/test_pallas_blend.py), optionally all at opacity 0.999; or the
+    packed scene, whose busiest tile walks more than two 256-pair backward
+    segments (``blend_test_scene``)."""
+    kind = "packed" if packed else "opaque" if opaque else "pallas"
     cam = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=48, W=64, device=dev)
-    return cam, [torch.as_tensor(np.asarray(a, np.float32), device=dev)
-                 for a in (means, scales, quats, opac, colors)]
+    return cam, [torch.as_tensor(a, device=dev)
+                 for a in blend_test_scene(kind)]
 
 
 def _kernel_args(cam, means, scales, quats, opac, colors):
@@ -285,3 +276,36 @@ def test_segmented_backward_on_packed_scene(cuda, route):
         past = torch.arange(cap, device=cuda)[None, :] >= counts[:, None]
         assert not bool(d_kernel[past].any())
     torch.testing.assert_close(d_kernel / scale, d_plain / scale, **GRAD)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_segment_length(cuda):
+    """A layout at another segment length than the kernels' SEG fits its
+    own items' shapes, but every training entry point refuses it before
+    launching: K1/K3 would write checkpoints past their tile's run."""
+    from d2dgs_torch.ops.cuda.blend import NREC, SEG, segment_layout
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
+                                                  blend_dense_fwd)
+    from d2dgs_torch.ops.tiled_raster import PIX
+    cam, arrs = _scene(False, cuda, packed=True)
+    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    fs, rank, start, count, _ = _kernel_args(cam, *arrs)
+    records = torch.empty((counts.shape[0], NREC, PIX), dtype=torch.int32,
+                          device=cuda)
+    state = blend_fwd(fs, rank, start, count, gx)
+    g = torch.zeros_like(state)
+    launches = (blend_fwd.launches, blend_bwd.launches,
+                blend_dense_fwd.launches, blend_dense_bwd.launches)
+    for seg in (SEG // 2, 2 * SEG):
+        lay = segment_layout(counts, seg)
+        with pytest.raises(ValueError, match=f"{seg}-pair segments"):
+            blend_fwd(fs, rank, start, count, gx, records=records,
+                      segments=lay)
+        with pytest.raises(ValueError, match=f"{seg}-pair segments"):
+            blend_bwd(fs, rank, start, count, gx, state, records, g, lay)
+        with pytest.raises(ValueError, match=f"{seg}-pair segments"):
+            blend_dense_fwd(gdata, counts, gx, records=records, segments=lay)
+        with pytest.raises(ValueError, match=f"{seg}-pair segments"):
+            blend_dense_bwd(gdata, counts, gx, state, records, g, lay)
+    assert (blend_fwd.launches, blend_bwd.launches, blend_dense_fwd.launches,
+            blend_dense_bwd.launches) == launches

@@ -24,6 +24,7 @@ from d2dgs_tpu.ops.tiled_raster import blend_tiles as jblend_tiles
 from d2dgs_tpu.ops.tiled_raster import rasterize_tiled as jtiled
 from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.cameras import orbit_camera
+from d2dgs_torch.data.synthetic import blend_test_scene
 from d2dgs_torch.ops.binning import Binning
 from d2dgs_torch.ops.cuda.blend import DEAD_ROWS
 from d2dgs_torch.ops.cuda.blend_dense import (BlendTilesDense,
@@ -52,19 +53,7 @@ def _scene(kind):
     ("pallas"), the same all at opacity 0.999 ("opaque"), and 300 splats
     packed near the view centre ("packed": its busiest tiles hold ~270
     pairs, above a tile_cap of 128)."""
-    n, spread, bias = (300, 0.15, -1.0) if kind == "packed" else \
-        (160, 0.5, 1.0)
-    rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * spread
-    scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
-    quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
-    if kind == "opaque":
-        opac = np.full(n, 0.999)
-    colors = rs.uniform(size=(n, 3))
-    return [np.asarray(a, np.float32)
-            for a in (means, scales, quats, opac, colors)]
+    return list(blend_test_scene(kind, n_packed=300))
 
 
 def _jcfg(tile_cap, use_workqueue=False):

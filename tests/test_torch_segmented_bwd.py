@@ -21,8 +21,10 @@ from d2dgs_tpu.ops.projection import tile_grid
 from d2dgs_tpu.ops.tiled_raster import blend_tiles as jblend_tiles
 from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.cameras import orbit_camera
+from d2dgs_torch.data.synthetic import blend_test_scene
 from d2dgs_torch.ops.binning import bin_gaussians
 from d2dgs_torch.ops.cuda.blend import (DEAD_ROWS, SEG,
+                                        _check_segments,
                                         blend_bwd_segments_plain,
                                         blend_tiles_plain_vjp,
                                         segment_layout, suffix_sums)
@@ -39,26 +41,6 @@ GRAD = dict(rtol=2e-4, atol=2e-5)
 
 def T(a):
     return torch.from_numpy(np.array(a))
-
-
-def _scene(kind):
-    """48x64 views: the 160 splats of tests/test_pallas_blend.py
-    ("pallas"), the same all at opacity 0.999 ("opaque"), and 700 splats
-    packed near the view centre ("packed": its busiest tile holds 626
-    pairs and walks more than 2 * SEG of them)."""
-    n, spread, bias = (700, 0.15, -1.0) if kind == "packed" else \
-        (160, 0.5, 1.0)
-    rs = np.random.RandomState(0)
-    means = rs.normal(size=(n, 3)) * spread
-    scales = np.exp(rs.normal(size=(n, 2)) * 0.3) * 0.08
-    quats = rs.normal(size=(n, 4)) + np.array([1.0, 0, 0, 0])
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opac = 1.0 / (1.0 + np.exp(-(rs.normal(size=n) + bias)))
-    if kind == "opaque":
-        opac = np.full(n, 0.999)
-    colors = rs.uniform(size=(n, 3))
-    return [np.asarray(a, np.float32)
-            for a in (means, scales, quats, opac, colors)]
 
 
 def _tile_rows(feats_sorted, binning):
@@ -87,7 +69,7 @@ class View:
     the dead rows zeroed, and the plain VJPs."""
 
     def __init__(self, kind):
-        means, scales, quats, opac, colors = map(T, _scene(kind))
+        means, scales, quats, opac, colors = map(T, blend_test_scene(kind))
         cam = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=H, W=W, device="cpu")
         self.gx, gy = tile_grid(H, W)
         prep = preprocess(means, scales, quats, cam)
@@ -306,13 +288,25 @@ def test_segment_layout_covers_each_walked_pair_once(seg):
         np.testing.assert_array_equal(cv[w:], 0)
 
 
+@pytest.mark.parametrize("seg", [8, 512])
+def test_kernel_checks_reject_other_segment_length(seg):
+    """The kernels walk SEG-pair segments: a layout at any other length
+    has the right shapes for its own items, and the wrappers' check
+    refuses it; the SEG layout of the same counts passes."""
+    counts = torch.as_tensor([0, 3 * SEG + 5, SEG, 7], dtype=torch.int32)
+    cpu = torch.device("cpu")
+    assert _check_segments(segment_layout(counts), 4, cpu) == 4 + 3
+    with pytest.raises(ValueError, match=f"{seg}-pair segments"):
+        _check_segments(segment_layout(counts, seg), 4, cpu)
+
+
 def test_segments_plain_matches_jax_k2():
     """The emulation at 8-pair segments against JAX blend_tiles on the
     work-queue kernels (K2 included) in interpret mode, as
     tests/test_torch_train.py holds the port's blend VJP: the same
     preprocessed splats and cotangents on every map channel; gradients in
     Tmat, center, normal, colour and opacity."""
-    means, scales, quats, opac, colors = _scene("pallas")
+    means, scales, quats, opac, colors = blend_test_scene("pallas")
     cam = jorbit(0.4, 0.3, 3.0, fov=0.8, H=H, W=W)
     gx, gy = tile_grid(H, W)
     jcfg = JRasterConfig(tile_cap=256, chunk=64, pair_cap=2048,
