@@ -586,6 +586,13 @@ def item_walks(records, segments):
     return torch.clamp(n_walk[t] - s * SEG, 0, SEG)
 
 
+def fwd_walks(state):
+    """The pairs a forward CTA of each tile walks: its slowest pixel's
+    evaluations (state row 14), up to and with its termination."""
+    from d2dgs_torch.ops.tiled_raster import ROW_N_EVAL
+    return state[:, ROW_N_EVAL].amax(dim=1).to(torch.int64)
+
+
 def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
     """The per-work-item timer of a backward launch: [I, 2] int64
     %globaltimer stamps at each item's start and end; ``item_tile`` and
@@ -786,6 +793,13 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         torch.cuda.synchronize()
         k4_items = item_report("phase 5a", "K4", item_ns, seg.items[:, 0],
                                item_walks(records, seg), counts)
+        cta_ns = torch.zeros((gdata.shape[0], 2), dtype=torch.int64,
+                             device=dev)
+        blend_dense_fwd(gdata, counts, gx_t, item_ns=cta_ns)
+        torch.cuda.synchronize()
+        k3_items = item_report("phase 5a", "K3 serving", cta_ns,
+                               torch.arange(cta_ns.shape[0], device=dev),
+                               fwd_walks(state), counts)
         k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t),
                         reps=20)
         k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
@@ -824,7 +838,8 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
            "k3_plain_ms": k3_plain_ms, "k4_plain_ms": k4_plain_ms,
            "gather_ms": gather_ms, "gather_bwd_ms": float(np.mean(back[1:])),
            "gdata_bytes": gdata.numel() * 4, "k3_bound": b3, "k4_bound": b4,
-           "k4_items": k4_items, "ckpt_bytes": seg.ckpt.numel() * 4,
+           "k4_items": k4_items, "k3_items": k3_items,
+           "ckpt_bytes": seg.ckpt.numel() * 4,
            "k4_zero_fill_ms": zero_ms,
            "checks": checks, "grads": grads,
            "k3_max_abs_err": checks[label]["max_abs_err"],
@@ -1291,6 +1306,13 @@ def main() -> int:
             + json.dumps(hist_t))
         k2_items = item_report("phase 4", "K2", item_ns, seg_t.items[:, 0],
                                item_walks(records, seg_t), bin_t.tile_count)
+        cta_ns = torch.zeros((bin_t.tile_start.shape[0], 2),
+                             dtype=torch.int64, device=dev)
+        blend_fwd(*args_t, item_ns=cta_ns)
+        torch.cuda.synchronize()
+        tiles_t = torch.arange(cta_ns.shape[0], device=dev)
+        k1_items = item_report("phase 4", "K1 serving", cta_ns, tiles_t,
+                               fwd_walks(state_t), bin_t.tile_count)
         k1_train_ms = cuda_ms(lambda: blend_fwd(
             *args_t, records=records, segments=seg_t), reps=20)
         k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)
@@ -1357,6 +1379,9 @@ def main() -> int:
         "ms_training_mode": k1_train_ms,
         "plain_ms": plain_ms, "bound_ms": bound1["bound_ms"],
         "bound_by": bound1["bound_by"], "library_ms": None,
+        "work_items": k1_items["items"],
+        "longest_item_us": k1_items["slowest_us"],
+        "items_span_us": k1_items["span_us"],
         "render_ms": render_ms, "stages_ms": stages}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
@@ -1387,6 +1412,9 @@ def main() -> int:
         "ms": res5a["k3_ms"], "ms_training_mode": res5a["k3_train_ms"],
         "plain_ms": res5a["k3_plain_ms"], "bound_ms": b3["bound_ms"],
         "bound_by": b3["bound_by"], "library_ms": None,
+        "work_items": res5a["k3_items"]["items"],
+        "longest_item_us": res5a["k3_items"]["slowest_us"],
+        "items_span_us": res5a["k3_items"]["span_us"],
         "gather_ms": res5a["gather_ms"],
         "gather_bwd_ms": res5a["gather_bwd_ms"],
         "node_step_ms": res5b["node_step_ms"],

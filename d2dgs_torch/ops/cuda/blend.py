@@ -91,10 +91,10 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
     lib.blend_fwd_launch.restype = ctypes.c_int
     lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
     lib.blend_dense_fwd_launch.restype = ctypes.c_int
     lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_fwd_error_string.restype = ctypes.c_char_p
@@ -186,6 +186,13 @@ def _check_train(records, segments, g_state, state, num_tiles, dev):
     return _check_segments(segments, num_tiles, dev)
 
 
+def _check_item_ns(item_ns, n_items, device):
+    if item_ns is not None:
+        _check("item_ns", item_ns, torch.int64, 2, device)
+        if tuple(item_ns.shape) != (n_items, 2):
+            raise ValueError(f"item_ns must be [{n_items}, 2]")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -194,7 +201,8 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               tile_start: torch.Tensor, tile_count: torch.Tensor,
               grid_x: int, chunk: int = 64,
               records: torch.Tensor | None = None,
-              segments: Segments | None = None) -> torch.Tensor:
+              segments: Segments | None = None,
+              item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
     [T, NSTATE, PIX] float32.
@@ -208,6 +216,8 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     at a time) and ``records`` and ``segments`` are left as they are,
     since the plain backward needs neither; on CUDA tensors it launches
     the kernel, which stages its own 256-pair batches, or raises.
+    ``item_ns`` (optional int64 [T, 2] on the card) receives each CTA's
+    %globaltimer stamps at its start and end.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -222,6 +232,7 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
         _check_segments(segments, num_tiles, dev)
         ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
+    _check_item_ns(item_ns, num_tiles, dev)
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
     lib = _lib()
@@ -231,7 +242,7 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
             feats_sorted.data_ptr(), pair_rank.data_ptr(),
             tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
             state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
-            stream)
+            _ptr(item_ns), stream)
     if err != 0:
         raise RuntimeError("blend_fwd kernel launch failed: "
                            + lib.blend_fwd_error_string(err).decode())

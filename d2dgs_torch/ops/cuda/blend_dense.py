@@ -19,9 +19,9 @@ import torch
 
 from ..binning import Binning
 from ..tiled_raster import NFEAT, NSTATE, PIX, blend_walk
-from .blend import (DEAD_ROWS, NREC, Segments, _check, _check_rows,
-                    _check_segments, _check_train, _lib, _lib_bwd, _ptr,
-                    segment_layout)
+from .blend import (DEAD_ROWS, NREC, Segments, _check, _check_item_ns,
+                    _check_rows, _check_segments, _check_train, _lib,
+                    _lib_bwd, _ptr, segment_layout)
 
 
 def build_gdata(feats: torch.Tensor, binning: Binning, tile_cap: int):
@@ -122,7 +122,8 @@ def _check_dense(gdata, counts, grid_x):
 
 def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
                     chunk: int = 64, records: torch.Tensor | None = None,
-                    segments: Segments | None = None) -> torch.Tensor:
+                    segments: Segments | None = None,
+                    item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
     int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
 
@@ -130,7 +131,8 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     ``segment_layout(counts)``): K3 also writes K4's records and
     checkpoints, as K1 for K2.  On CPU tensors this is
     ``blend_dense_plain`` and ``records`` and ``segments`` are left as
-    they are; on CUDA tensors it launches K3 or raises."""
+    they are; on CUDA tensors it launches K3 or raises.  ``item_ns`` as
+    for ``blend_fwd``."""
     if gdata.device.type == "cpu":
         return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
     dev = gdata.device
@@ -142,6 +144,7 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
         _check_segments(segments, num_tiles, dev)
         ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
+    _check_item_ns(item_ns, num_tiles, dev)
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
     lib = _lib()
@@ -150,7 +153,7 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
         err = lib.blend_dense_fwd_launch(
             gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x,
             state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
-            stream)
+            _ptr(item_ns), stream)
     if err != 0:
         raise RuntimeError("blend_dense_fwd kernel launch failed: "
                            + lib.blend_fwd_error_string(err).decode())
