@@ -88,11 +88,8 @@ OPS_BLEND = 39
 # running sums (143), and its 18 gradients join the cross-pixel sum (18).
 OPS_BWD_BLEND = 143 + 18
 
-# kernel-vs-plain tolerances per state row (rtol, atol): colour and alpha
-# as the image, the auxiliary rows as the allmap in the JAX package's
-# kernel tests (tests/test_pallas_blend.py)
-TIGHT = (1e-5, 1e-5)
-AUX = (1e-4, 1e-5)
+# kernel-vs-plain tolerances per state row: d2dgs_torch.ops.cuda.blend
+# TIGHT and AUX, judged by its compare_states
 MAX_FLIP_SHARE = 1e-4     # pixels whose termination/median branch flips
 # K2 vs its plain version, each feature column max-normalised: the
 # tolerance of the JAX package's kernel gradients (tests/test_pallas_blend.py)
@@ -153,44 +150,10 @@ def splat_inputs(means3d, scales, quats, opacity, colors, valid_mask, cam,
     return feats[binning.order.long()].contiguous(), binning, gx
 
 
-def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
-    """Kernel state rows vs the plain version's.  A pixel 'flips' when
-    its termination (done row) or its median-depth choice (median rows)
-    differs; every other pixel must agree within the row tolerances."""
-    from d2dgs_torch.ops.tiled_raster import (ROW_COLOR, ROW_D1, ROW_D2,
-                                              ROW_DEPTH, ROW_DISTORTION,
-                                              ROW_DONE, ROW_MED_D, ROW_MED_W,
-                                              ROW_N_BLEND, ROW_N_EVAL,
-                                              ROW_NORMAL, ROW_T)
-    tol = {ROW_T: TIGHT, ROW_D1: AUX, ROW_D2: AUX, ROW_DEPTH: AUX,
-           ROW_DISTORTION: AUX, ROW_MED_D: AUX, ROW_MED_W: AUX}
-    for sl, t in ((ROW_COLOR, TIGHT), (ROW_NORMAL, AUX)):
-        tol.update({r: t for r in range(sl.start, sl.stop)})
-
-    def close(r):
-        rtol, atol = tol[r]
-        return (sk[:, r] - sp[:, r]).abs() <= atol + rtol * sp[:, r].abs()
-
-    flip = (sk[:, ROW_DONE] != sp[:, ROW_DONE]) | ~close(ROW_MED_D) \
-        | ~close(ROW_MED_W)
-    keep = ~flip
-    row_err = {r: float((sk[:, r] - sp[:, r]).abs()[keep].max())
-               if bool(keep.any()) else 0.0 for r in sorted(tol)}
-    bad = torch.zeros_like(flip)
-    for r in tol:
-        bad |= ~close(r)
-    for r in (ROW_N_EVAL, ROW_N_BLEND):
-        bad |= sk[:, r] != sp[:, r]
-    bad &= keep
-    n_pix = flip.numel()
-    return {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
-            "pixels": n_pix, "bad_outside_flips": int(bad.sum()),
-            "max_abs_err": max(row_err.values()), "flip_mask": flip}
-
-
 def check_states(tag, label, sk, sp, pairs):
     """Kernel state rows ``sk`` against the plain version's ``sp``: log the
     comparison and raise past the tolerances."""
+    from d2dgs_torch.ops.cuda.blend import compare_states
     res = compare_states(sk, sp)
     log(f"[{tag}] {label}: pairs {pairs}, flipped "
         f"pixels {res['flipped']}/{res['pixels']}, outside-tolerance "
@@ -204,17 +167,30 @@ def check_states(tag, label, sk, sp, pairs):
     return res
 
 
+def train_buffers(counts):
+    """A training forward's records buffer and segment layout."""
+    from d2dgs_torch.ops.cuda.blend import NREC, segment_layout
+    from d2dgs_torch.ops.tiled_raster import PIX
+    records = torch.empty((counts.shape[0], NREC, PIX), dtype=torch.int32,
+                          device=counts.device)
+    return records, segment_layout(counts)
+
+
 def check_kernel(label, feats_sorted, binning, gx, chunk):
+    """K1 in serving and in training mode against blend_tiles_plain."""
     from d2dgs_torch.ops.cuda.blend import blend_fwd
     from d2dgs_torch.ops.tiled_raster import blend_tiles_plain
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
             binning.tile_count, gx)
     sk = blend_fwd(*args)
+    records, seg = train_buffers(binning.tile_count)
+    st = blend_fwd(*args, records=records, segments=seg)
     torch.cuda.synchronize()
     sp = blend_tiles_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
-    return sk, check_states("phase 2", label, sk, sp,
-                            int(binning.num_pairs))
+    pairs = int(binning.num_pairs)
+    check_states("phase 2", label + ", training mode", st, sp, pairs)
+    return sk, check_states("phase 2", label, sk, sp, pairs)
 
 
 def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
@@ -587,10 +563,52 @@ def item_walks(records, segments):
 
 
 def fwd_walks(state):
-    """The pairs a forward CTA of each tile walks: its slowest pixel's
+    """The pairs the walk of each tile covers: its slowest pixel's
     evaluations (state row 14), up to and with its termination."""
     from d2dgs_torch.ops.tiled_raster import ROW_N_EVAL
     return state[:, ROW_N_EVAL].amax(dim=1).to(torch.int64)
+
+
+def fwd_item_report(tag, label, run, state, counts, work) -> dict:
+    """Both passes of a serving forward (K1 or K3) timed per work item:
+    ``run(**kw)`` launches it with the keywords given; ``state`` its
+    state rows, ``counts`` the clamped pair counts, ``work`` the
+    wrapper's (items, slots) bounds.  Pass A's items are the segments but
+    a tile's last; pass B's walk their share of the tile's walk.  Logs and
+    returns each pass's item_report, the forward's span and longest item,
+    pass A's pair-pixel evaluations beside the walk's (state row 14), and
+    the partial buffer's bytes."""
+    from d2dgs_torch.ops.cuda.blend import NPART, SEG, segment_layout
+    from d2dgs_torch.ops.tiled_raster import PIX, ROW_N_EVAL
+    items = segment_layout(counts).items
+    dev = state.device
+    item_ns = torch.zeros((2, items.shape[0], 2), dtype=torch.int64,
+                          device=dev)
+    n_pass_a = torch.zeros(1, dtype=torch.int64, device=dev)
+    run(item_ns=item_ns, n_pass_a=n_pass_a)
+    torch.cuda.synchronize()
+    t, s = items.long().unbind(1)
+    n_own = torch.clamp_min((counts.long() + SEG - 1) // SEG, 1)
+    walk_a = torch.where(s < n_own[t] - 1, SEG, 0)
+    walk_b = torch.clamp(fwd_walks(state)[t] - s * SEG, 0, SEG)
+    rep_a = item_report(tag, f"{label} pass A", item_ns[0], t, walk_a,
+                        counts)
+    rep_b = item_report(tag, f"{label} pass B", item_ns[1], t, walk_b,
+                        counts)
+    res = {"items": int(items.shape[0]), "pass_a": rep_a, "pass_b": rep_b,
+           "span_us": float(item_ns[1, :, 1].max() - item_ns[0, :, 0].min())
+           / 1e3,
+           "longest_us": max(rep_a["slowest_us"], rep_b["slowest_us"]),
+           "pass_a_evals": int(n_pass_a),
+           "walk_evals": float(state[:, ROW_N_EVAL].to(torch.float64).sum()),
+           "grid_items": work[0], "partial_bytes": work[1] * NPART * PIX * 4}
+    log(f"[{tag}] {label} forward: {res['items']} work items (grid "
+        f"{work[0]}), span {res['span_us']:.1f} us (pass A "
+        f"{rep_a['span_us']:.1f}, pass B {rep_b['span_us']:.1f}), longest "
+        f"item {res['longest_us']:.1f} us; pass A evaluations "
+        f"{res['pass_a_evals']} beside the walk's {res['walk_evals']:.0f}; "
+        f"partial buffer {res['partial_bytes']} B")
+    return res
 
 
 def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
@@ -619,6 +637,20 @@ def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
     return res
 
 
+def fwd_fields(rep) -> dict:
+    """A forward kernel's work-item fields of the kernels line, from
+    fwd_item_report."""
+    return {"work_items": rep["items"], "longest_item_us": rep["longest_us"],
+            "items_span_us": rep["span_us"],
+            "partial_bytes": rep["partial_bytes"],
+            "partial_bytes_training": rep["train_partial_bytes"],
+            "pass_a_span_us": rep["pass_a"]["span_us"],
+            "pass_b_span_us": rep["pass_b"]["span_us"],
+            "pass_a_longest_us": rep["pass_a"]["slowest_us"],
+            "pass_b_longest_us": rep["pass_b"]["slowest_us"],
+            "pass_a_evaluations": rep["pass_a_evals"]}
+
+
 def dense_inputs(feats_sorted, binning, tile_cap: int):
     """The dense route's (gdata, counts) for one view, from its depth-sorted
     features (build_gdata with the identity order)."""
@@ -636,15 +668,19 @@ def dense_row_bytes(counts) -> int:
 
 
 def check_dense_kernel(label, gdata, counts, gx, chunk):
-    """K3 against blend_dense_plain on one view."""
+    """K3 in serving and in training mode against blend_dense_plain on
+    one view."""
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
                                                   blend_dense_plain)
     sk = blend_dense_fwd(gdata, counts, gx)
+    records, seg = train_buffers(counts)
+    st = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg)
     torch.cuda.synchronize()
     sp = blend_dense_plain(gdata, counts, gx, chunk=chunk)
     torch.cuda.synchronize()
-    return sk, check_states("phase 5a", label, sk, sp,
-                            int(counts.to(torch.int64).sum()))
+    pairs = int(counts.to(torch.int64).sum())
+    check_states("phase 5a", label + ", training mode", st, sp, pairs)
+    return sk, check_states("phase 5a", label, sk, sp, pairs)
 
 
 def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
@@ -721,7 +757,8 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     """K3 and K4 against their plain versions on the two 48x64 scenes and
     the full-width t=0.5 view, the view again at a tile_cap below its
     busiest tile, then their times beside their bounds and plain times."""
-    from d2dgs_torch.ops.cuda.blend import NREC, blend_fwd, segment_layout
+    from d2dgs_torch.ops.cuda.blend import (NPART, NREC, blend_fwd,
+                                            forward_work, segment_layout)
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain,
@@ -793,15 +830,15 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         torch.cuda.synchronize()
         k4_items = item_report("phase 5a", "K4", item_ns, seg.items[:, 0],
                                item_walks(records, seg), counts)
-        cta_ns = torch.zeros((gdata.shape[0], 2), dtype=torch.int64,
-                             device=dev)
-        blend_dense_fwd(gdata, counts, gx_t, item_ns=cta_ns)
-        torch.cuda.synchronize()
-        k3_items = item_report("phase 5a", "K3 serving", cta_ns,
-                               torch.arange(cta_ns.shape[0], device=dev),
-                               fwd_walks(state), counts)
-        k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t),
-                        reps=20)
+        n_pairs = bin_t.pair_rank.shape[0]
+        k3_items = fwd_item_report(
+            "phase 5a", "K3", lambda **k: blend_dense_fwd(
+                gdata, counts, gx_t, max_pairs=n_pairs, **k), state, counts,
+            forward_work(gdata.shape[0], n_pairs))
+        k3_items["train_partial_bytes"] = forward_work(
+            gdata.shape[0], n_pairs, seg)[1] * NPART * PIX * 4
+        k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t,
+                                                max_pairs=n_pairs), reps=20)
         k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
             gdata, counts, gx_t, records=records, segments=seg), reps=20)
         k4_ms = cuda_ms(lambda: blend_dense_bwd(gdata, counts, gx_t, state,
@@ -1038,9 +1075,9 @@ def main() -> int:
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
     from d2dgs_torch.ops.cuda import blend as blend_lib
-    from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
+    from d2dgs_torch.ops.cuda.blend import (NPART, NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
-                                            segment_layout)
+                                            forward_work, segment_layout)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
     from d2dgs_torch.ops.tiled_raster import (PIX, blend_tiles_plain,
@@ -1306,13 +1343,13 @@ def main() -> int:
             + json.dumps(hist_t))
         k2_items = item_report("phase 4", "K2", item_ns, seg_t.items[:, 0],
                                item_walks(records, seg_t), bin_t.tile_count)
-        cta_ns = torch.zeros((bin_t.tile_start.shape[0], 2),
-                             dtype=torch.int64, device=dev)
-        blend_fwd(*args_t, item_ns=cta_ns)
-        torch.cuda.synchronize()
-        tiles_t = torch.arange(cta_ns.shape[0], device=dev)
-        k1_items = item_report("phase 4", "K1 serving", cta_ns, tiles_t,
-                               fwd_walks(state_t), bin_t.tile_count)
+        n_tiles_t = bin_t.tile_start.shape[0]
+        k1_items = fwd_item_report(
+            "phase 4", "K1", lambda **k: blend_fwd(*args_t, **k), state_t,
+            bin_t.tile_count,
+            forward_work(n_tiles_t, bin_t.pair_rank.shape[0]))
+        k1_items["train_partial_bytes"] = forward_work(
+            n_tiles_t, bin_t.pair_rank.shape[0], seg_t)[1] * NPART * PIX * 4
         k1_train_ms = cuda_ms(lambda: blend_fwd(
             *args_t, records=records, segments=seg_t), reps=20)
         k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)
@@ -1379,9 +1416,7 @@ def main() -> int:
         "ms_training_mode": k1_train_ms,
         "plain_ms": plain_ms, "bound_ms": bound1["bound_ms"],
         "bound_by": bound1["bound_by"], "library_ms": None,
-        "work_items": k1_items["items"],
-        "longest_item_us": k1_items["slowest_us"],
-        "items_span_us": k1_items["span_us"],
+        **fwd_fields(k1_items),
         "render_ms": render_ms, "stages_ms": stages}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
@@ -1412,9 +1447,7 @@ def main() -> int:
         "ms": res5a["k3_ms"], "ms_training_mode": res5a["k3_train_ms"],
         "plain_ms": res5a["k3_plain_ms"], "bound_ms": b3["bound_ms"],
         "bound_by": b3["bound_by"], "library_ms": None,
-        "work_items": res5a["k3_items"]["items"],
-        "longest_item_us": res5a["k3_items"]["slowest_us"],
-        "items_span_us": res5a["k3_items"]["span_us"],
+        **fwd_fields(res5a["k3_items"]),
         "gather_ms": res5a["gather_ms"],
         "gather_bwd_ms": res5a["gather_bwd_ms"],
         "node_step_ms": res5b["node_step_ms"],

@@ -4,8 +4,11 @@ that pairs them.
 
 K1 replaces ``_fwd_wq_kernel`` of d2dgs_tpu/ops/pallas/blend_tpu.py: it
 blends every tile's depth-sorted pair list into the state rows
-[T, NSTATE, PIX] (layout ROW_* in ops/tiled_raster.py); its plain
-PyTorch version is ``blend_tiles_plain``.  K2 replaces
+[T, NSTATE, PIX] (layout ROW_* in ops/tiled_raster.py), one work item per
+(tile, SEG-pair segment) in two passes (segment transmittance products,
+then each segment's walk from its incoming T, folded per tile); its
+plain PyTorch version is ``blend_tiles_plain``, and
+``blend_fwd_segments_plain`` emulates its algorithm.  K2 replaces
 ``_bwd_wq_kernel``: from K1's state, per-pixel records and checkpoints
 it computes the gradient of the 18 sorted feature columns, one work item
 per (tile, SEG-pair segment); its plain PyTorch version is
@@ -23,11 +26,13 @@ from typing import NamedTuple
 import torch
 
 from ...config import (ALPHA_CLIP, ALPHA_CUTOFF, FAR_PLANE,
-                       FILTER_INV_SQUARE, NEAR_PLANE)
-from ..tiled_raster import (CKPT_ROWS, NCKPT, NFEAT, NSTATE, PIX, ROW_D1,
-                            ROW_D2, ROW_DONE, ROW_MED_W, ROW_N_BLEND,
-                            ROW_N_EVAL, _tile_pixels, blend_tiles_plain,
-                            blend_walk)
+                       FILTER_INV_SQUARE, NEAR_PLANE, T_CUTOFF)
+from .. import blend as B
+from ..tiled_raster import (CKPT_ROWS, NCKPT, NFEAT, NSTATE, PIX, ROW_COLOR,
+                            ROW_D1, ROW_D2, ROW_DEPTH, ROW_DISTORTION,
+                            ROW_DONE, ROW_MED_D, ROW_MED_W, ROW_N_BLEND,
+                            ROW_N_EVAL, ROW_NORMAL, ROW_T, _tile_pixels,
+                            blend_tiles_plain, blend_walk)
 from . import build
 
 SOURCE = "blend_fwd.cu"
@@ -39,19 +44,25 @@ REC_LAST = 0
 # state rows whose cotangent K2 takes as zero, as the TPU kernel does:
 # done, the final dist1/dist2 and the two work counters
 DEAD_ROWS = (ROW_DONE, ROW_D1, ROW_D2, ROW_N_EVAL, ROW_N_BLEND)
-# pairs per backward segment: a training forward checkpoints its
-# accumulators (CKPT_ROWS) at every SEG-th pair (the kernels' BATCH)
+# pairs per work item (segment) of every blend kernel: a training forward
+# checkpoints its accumulators (CKPT_ROWS) at every SEG-th pair
 SEG = 256
+# rows per pixel of a forward work item's partial state (csrc/blend_fwd.cu)
+NPART = 17
 
 
 class Segments(NamedTuple):
-    """A training forward's checkpoints and the backward's work items.
+    """A training forward's checkpoints and the work items of the kernels.
     Tile t has max(1, ceil(count[t] / seg)) items, tile by tile: item i
     is segment s = ``items[i, 1]`` (pairs [s*seg, (s+1)*seg)) of tile
-    t = ``items[i, 0]``, whose walk starts from checkpoint
-    ``ckpt_off[t] + s``, the state after pairs [0, (s+1)*seg), or from
-    the final state for the tile's last segment.  The kernels walk SEG-pair
-    segments and take no other ``seg``; the plain emulation takes any."""
+    t = ``items[i, 0]``.  The forward (K1/K3) walks each item from the
+    transmittance its tile's earlier segments leave and writes, when it
+    folds the tile's items in order, checkpoint ``ckpt_off[t] + s``: the
+    state after pairs [0, (s+1)*seg), with the T of segment s's own walk.
+    The backward (K2/K4) walks item i back from that checkpoint, or from
+    the final state for the tile's last segment.  The kernels walk
+    SEG-pair segments and take no other ``seg``; the plain emulations
+    take any."""
     ckpt_off: torch.Tensor    # [T] int32: tile t's first checkpoint
     items: torch.Tensor       # [I, 2] int32 (tile, segment), I = T + n_bound
     ckpt: torch.Tensor        # [n_bound, NCKPT, PIX] float32
@@ -87,14 +98,35 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
                                 device=dev), seg)
 
 
+def forward_work(num_tiles: int, n_pairs: int,
+                 segments: Segments | None = None,
+                 max_segs: int | None = None) -> tuple[int, int]:
+    """(items, slots): the forward kernels' grid of work items and their
+    partial slots, as bounds known on the host (no read of the counts).
+    Tile t has max(1, ceil(c / SEG)) <= 1 + c // SEG items, so counts
+    summing to at most ``n_pairs`` (and at most ``max_segs`` segments
+    each) give at most num_tiles + n_pairs // SEG; only tiles of more
+    than one segment keep partials, ceil(c / SEG) <= 2 c / SEG each.  A
+    training layout (``segments``) gives the items exactly and at most
+    2 n_bound slots (each such tile has at least one checkpoint)."""
+    if segments is not None:
+        return segments.items.shape[0], 2 * segments.ckpt.shape[0]
+    items = num_tiles + n_pairs // SEG
+    if max_segs is not None:
+        items = min(items, num_tiles * max_segs)
+    return items, min(items, 2 * n_pairs // SEG)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
     lib.blend_fwd_launch.restype = ctypes.c_int
     lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
     lib.blend_dense_fwd_launch.restype = ctypes.c_int
     lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_fwd_error_string.restype = ctypes.c_char_p
@@ -186,15 +218,8 @@ def _check_train(records, segments, g_state, state, num_tiles, dev):
     return _check_segments(segments, num_tiles, dev)
 
 
-def _check_item_ns(item_ns, n_items, device):
-    if item_ns is not None:
-        _check("item_ns", item_ns, torch.int64, 2, device)
-        if tuple(item_ns.shape) != (n_items, 2):
-            raise ValueError(f"item_ns must be [{n_items}, 2]")
-
-
 def _ptr(t):
-    return None if t is None else t.data_ptr()
+    return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
 def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
@@ -202,6 +227,7 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               grid_x: int, chunk: int = 64,
               records: torch.Tensor | None = None,
               segments: Segments | None = None,
+              n_pass_a: torch.Tensor | None = None,
               item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
@@ -215,9 +241,13 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     CPU tensors this is ``blend_tiles_plain`` (which steps ``chunk`` pairs
     at a time) and ``records`` and ``segments`` are left as they are,
     since the plain backward needs neither; on CUDA tensors it launches
-    the kernel, which stages its own 256-pair batches, or raises.
-    ``item_ns`` (optional int64 [T, 2] on the card) receives each CTA's
-    %globaltimer stamps at its start and end.
+    the kernel, one CTA per (tile, SEG-pair segment) in each of its two
+    passes, or raises.  Serving sizes the work from B, the pair count,
+    and reads nothing back.  ``n_pass_a`` (optional int64 [1] on the
+    card) is incremented by the pair-pixel evaluations of the first pass
+    (the transmittance products), the redesign's extra work; ``item_ns``
+    (optional int64 [2, I, 2]) receives each pass's %globaltimer stamps at
+    the start and end of work items 0..I-1.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -227,26 +257,52 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         raise ValueError(f"blend_fwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
                              grid_x)
+    lib = _lib()
+    state = _fwd_launch(
+        lib.blend_fwd_launch,
+        (feats_sorted.data_ptr(), pair_rank.data_ptr(),
+         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x),
+        num_tiles, forward_work(num_tiles, pair_rank.shape[0], segments),
+        records, segments, n_pass_a, item_ns, dev, "blend_fwd")
+    blend_fwd.launches += 1
+    return state
+
+
+def _fwd_launch(launcher, head, num_tiles, work, records, segments,
+                n_pass_a, item_ns, dev, name):
+    """Checks of a forward kernel's optional inputs, its output and
+    scratch buffers (the work-item layout, the partial slots), the launch;
+    returns the state rows or raises."""
     ckpt = ckpt_off = None
     if records is not None:
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
         _check_segments(segments, num_tiles, dev)
         ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
-    _check_item_ns(item_ns, num_tiles, dev)
+    if n_pass_a is not None:
+        _check("n_pass_a", n_pass_a, torch.int64, 1, dev)
+    n_timed = 0
+    if item_ns is not None:
+        _check("item_ns", item_ns, torch.int64, 3, dev)
+        if item_ns.shape[0] != 2 or item_ns.shape[2] != 2:
+            raise ValueError(f"item_ns must be [2, I, 2], got "
+                             f"{tuple(item_ns.shape)}")
+        n_timed = item_ns.shape[1]
+    n_items, n_slots = work
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
-    lib = _lib()
+    layout = torch.empty(3 * num_tiles + 1 + 2 * n_items, dtype=torch.int32,
+                         device=dev)
+    part = torch.empty((n_slots, NPART, PIX), dtype=torch.float32,
+                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_fwd_launch(
-            feats_sorted.data_ptr(), pair_rank.data_ptr(),
-            tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
-            state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
-            _ptr(item_ns), stream)
+        err = launcher(*head, n_items, state.data_ptr(), _ptr(records),
+                       _ptr(ckpt), _ptr(ckpt_off), layout.data_ptr(),
+                       _ptr(part), _ptr(n_pass_a), _ptr(item_ns), n_timed,
+                       stream)
     if err != 0:
-        raise RuntimeError("blend_fwd kernel launch failed: "
-                           + lib.blend_fwd_error_string(err).decode())
-    blend_fwd.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + _lib().blend_fwd_error_string(err).decode())
     return state
 
 
@@ -294,6 +350,158 @@ def pack_checkpoints(ck_tile: torch.Tensor, segments: Segments):
                    - off[tile]]
 
 
+# kernel-vs-plain tolerances per state row (rtol, atol): colour and alpha
+# as the image, the auxiliary rows as the allmap in the JAX package's
+# kernel tests (tests/test_pallas_blend.py)
+TIGHT = (1e-5, 1e-5)
+AUX = (1e-4, 1e-5)
+
+
+def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
+    """State rows ``sk`` of a blend against a reference's ``sp``.  A pixel
+    'flips' when its termination (done row) or its median-depth choice
+    (median rows) differs; every other pixel must agree within the row
+    tolerances (TIGHT, AUX) and count the same evaluated and blended
+    pairs (rows 14 and 15).  Returns the per-row max errors outside the
+    flips, the flipped and the outside-tolerance pixel counts and the
+    flip mask [T, PIX]."""
+    tol = {ROW_T: TIGHT, ROW_D1: AUX, ROW_D2: AUX, ROW_DEPTH: AUX,
+           ROW_DISTORTION: AUX, ROW_MED_D: AUX, ROW_MED_W: AUX}
+    for sl, t in ((ROW_COLOR, TIGHT), (ROW_NORMAL, AUX)):
+        tol.update({r: t for r in range(sl.start, sl.stop)})
+
+    def close(r):
+        rtol, atol = tol[r]
+        return (sk[:, r] - sp[:, r]).abs() <= atol + rtol * sp[:, r].abs()
+
+    flip = (sk[:, ROW_DONE] != sp[:, ROW_DONE]) | ~close(ROW_MED_D) \
+        | ~close(ROW_MED_W)
+    keep = ~flip
+    row_err = {r: float((sk[:, r] - sp[:, r]).abs()[keep].max())
+               if bool(keep.any()) else 0.0 for r in sorted(tol)}
+    bad = torch.zeros_like(flip)
+    for r in tol:
+        bad |= ~close(r)
+    for r in (ROW_N_EVAL, ROW_N_BLEND):
+        bad |= sk[:, r] != sp[:, r]
+    bad &= keep
+    return {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
+            "pixels": flip.numel(), "bad_outside_flips": int(bad.sum()),
+            "max_abs_err": max(row_err.values()), "flip_mask": flip}
+
+
+def blend_fwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,
+                             grid_x: int, seg: int = SEG, chunk: int = 64,
+                             train: bool = False,
+                             t_in: torch.Tensor | None = None):
+    """Plain emulation of K1/K3's algorithm at segment length ``seg``: the
+    state rows [T, NSTATE, PIX] of the blend of a tile's pair rows, rows
+    [T, L, NFEAT] (row i of tile t its i-th pair; only rows < counts[t]
+    are blended).  With ``train`` it returns ``(state, ckpt, records)``
+    as ``blend_walk(checkpoints=seg)`` does.
+
+    Pass A takes each segment's product of (1 - alpha) over its kept
+    pairs; pass B walks every segment of every tile at once from T_in,
+    the ordered product of its tile's earlier products (dist1/dist2 from
+    zero, T absolute); a pixel that enters below T_CUTOFF walks nothing.
+    The fold then adds each tile's segments in order, stopping at the
+    first that reports done.  A pixel that enters a segment below the
+    cutoff without an earlier trip (rounding) trips at the segment's
+    first kept pair.  ``t_in`` [T, S, PIX] (S the most segments of a
+    tile) replaces pass A's incoming T, to test the fold's decisions.  For
+    the CPU tests of the algorithm; the kernels' wrappers take SEG
+    only."""
+    num_tiles, cap, _ = rows.shape
+    dev = rows.device
+    c = counts.long()
+    n_own = torch.clamp_min((c + seg - 1) // seg, 1)         # [T]
+    n_seg = int(n_own.max()) if num_tiles else 1
+    step = math.gcd(chunk, seg)
+    lane = torch.arange(step, device=dev)
+    s_idx = torch.arange(n_seg, device=dev)
+    nb = torch.clamp(c[:, None] - s_idx * seg, 0, seg)        # [T, S]
+    pix = _tile_pixels(grid_x, torch.arange(num_tiles, device=dev))
+    pix = pix[:, None].expand(num_tiles, n_seg, PIX, 2)
+
+    def responses(j0):
+        """Features [T, S, step, NFEAT], alpha and depth [T, S, step, P] of
+        pairs j0 .. j0 + step - 1 of every segment."""
+        g = rows[:, torch.clamp_max(s_idx[:, None] * seg + j0 + lane,
+                                    cap - 1)]
+        opac = torch.where(j0 + lane < nb[..., None], g[..., 17], 0.0)
+        alpha, depth = B.pixel_responses(
+            g[..., 0:9].reshape(*g.shape[:3], 3, 3), g[..., 9:11], opac,
+            pix)
+        return g, alpha, depth
+
+    # pass A, and each segment's first kept pair (for the rare re-walk)
+    prod = torch.ones((num_tiles, n_seg, PIX), device=dev)
+    first = torch.full((num_tiles, n_seg, PIX), seg, device=dev)
+    for j0 in range(0, seg, step):
+        _, alpha, _ = responses(j0)
+        prod = prod * torch.prod(1.0 - alpha, dim=-2)
+        first = torch.minimum(first, torch.where(
+            alpha > 0.0, (j0 + lane)[:, None], seg).amin(dim=-2))
+    if t_in is None:
+        t_in = torch.cat([torch.ones_like(prod[:, :1]),
+                          torch.cumprod(prod, dim=1)[:, :-1]], dim=1)
+    pre = t_in < T_CUTOFF
+    # pass B
+    st = B.init_state((num_tiles, n_seg, PIX), device=dev,
+                      positions=True)._replace(T=t_in, done=pre)
+    for j0 in range(0, seg, step):
+        g, alpha, depth = responses(j0)
+        st = B.blend_chunk(st, alpha, depth, g[..., 14:17], g[..., 11:14],
+                           n_rows=torch.clamp(nb - j0, 0, step), offset=j0)
+    part = torch.stack(
+        [st.T, st.done.float(), st.dist1, st.dist2, *st.color.unbind(-1),
+         st.depth, *st.normal.unbind(-1), st.distortion, st.med_depth,
+         st.med_weight, st.n_eval, st.n_blend], dim=2)        # [T,S,16,P]
+    sum_w = t_in - st.T
+    trip = first < nb[..., None]
+    # the fold, segment by segment
+    out = torch.zeros((num_tiles, NSTATE, PIX), device=dev)
+    out[:, ROW_T] = 1.0
+    last = torch.full((num_tiles, PIX), -1, dtype=torch.int64, device=dev)
+    med = last.clone()
+    ckpt = []
+    sums = [ROW_D1, ROW_D2, *range(ROW_COLOR.start, ROW_COLOR.stop),
+            ROW_DEPTH, *range(ROW_NORMAL.start, ROW_NORMAL.stop),
+            ROW_N_EVAL, ROW_N_BLEND]
+    for s in range(n_seg):
+        if train and s:
+            ckpt.append(out[:, list(CKPT_ROWS)].clone())
+        p = part[:, s]
+        live = (out[:, ROW_DONE] == 0.0) & (s < n_own)[:, None]
+        walked = live & ~pre[:, s]
+        new = out.clone()
+        new[:, ROW_DISTORTION] = out[:, ROW_DISTORTION] + (
+            p[:, ROW_DISTORTION] + out[:, ROW_D2] * sum_w[:, s]
+            - 2.0 * out[:, ROW_D1] * p[:, ROW_D1])
+        new[:, sums] = out[:, sums] + p[:, sums]
+        new[:, ROW_T] = torch.where(pre[:, s], out[:, ROW_T], p[:, ROW_T])
+        new[:, ROW_DONE] = p[:, ROW_DONE]
+        has_med = st.med[:, s] >= 0
+        for r in (ROW_MED_D, ROW_MED_W):
+            new[:, r] = torch.where(has_med, p[:, r], out[:, r])
+        rewalk = live & pre[:, s]
+        new[:, ROW_N_EVAL] = torch.where(
+            rewalk, out[:, ROW_N_EVAL] + torch.where(
+                trip[:, s], first[:, s] + 1, nb[:, s, None]),
+            new[:, ROW_N_EVAL])
+        new[:, ROW_DONE] = torch.where(rewalk, trip[:, s].float(),
+                                       new[:, ROW_DONE])
+        out = torch.where((walked | rewalk)[:, None], new, out)
+        med = torch.where(walked & has_med, s * seg + st.med[:, s], med)
+        last = torch.where(walked & (st.last[:, s] >= 0),
+                           s * seg + st.last[:, s], last)
+    if not train:
+        return out
+    ckpt = torch.stack(ckpt, dim=1) if ckpt else \
+        out.new_zeros((num_tiles, 0, NCKPT, PIX))
+    return out, ckpt, torch.stack([last, med], dim=1).to(torch.int32)
+
+
 def suffix_sums(post: torch.Tensor, final: torch.Tensor,
                 g_state: torch.Tensor, med_w: torch.Tensor,
                 med_after: torch.Tensor):
@@ -320,7 +528,8 @@ def suffix_sums(post: torch.Tensor, final: torch.Tensor,
 
 def blend_bwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,
                              grid_x: int, g_state: torch.Tensor,
-                             seg: int = SEG, chunk: int = 64) -> torch.Tensor:
+                             seg: int = SEG, chunk: int = 64,
+                             forward: tuple | None = None) -> torch.Tensor:
     """Plain emulation of K2/K4's algorithm at segment length ``seg``:
     the gradient of <state, g_state> in a tile's pair rows, rows [T, L,
     NFEAT] (row i of tile t its i-th pair; only rows < counts[t] are
@@ -332,13 +541,16 @@ def blend_bwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,
     checkpoint (or the final state), its running sums from
     ``suffix_sums`` and walks its segment back to front with the
     kernel's arithmetic, all items at once.  The cotangents of
-    ``DEAD_ROWS`` are not read.  For the CPU tests of the algorithm."""
+    ``DEAD_ROWS`` are not read.  ``forward`` takes the forward's
+    ``(state, ckpt, records)`` from elsewhere (``blend_fwd_segments_plain``
+    with ``train``) in place of the plain walk's.  For the CPU tests of
+    the algorithm."""
     num_tiles, cap, _ = rows.shape
     dev = rows.device
     step = math.gcd(chunk, seg)
     lane = torch.arange(step, device=dev)
     tiles = torch.arange(num_tiles, device=dev)
-    state, ck_tile, records = blend_walk(
+    state, ck_tile, records = forward if forward is not None else blend_walk(
         lambda c0: rows[:, torch.clamp_max(c0 + lane, cap - 1)], counts,
         grid_x, step, tiles, checkpoints=seg)
     lay = segment_layout(counts, seg)

@@ -6,7 +6,7 @@ the autograd function that pairs them, and their plain PyTorch versions
 
 K3 replaces ``_fwd_kernel``: tile t blends rows [0, counts[t]) of its own
 slab of the dense pair buffer gdata [T, tile_cap, NFEAT] into the state
-rows [T, NSTATE, PIX].  K4 replaces ``_bwd_kernel``: the gradient of those
+rows [T, NSTATE, PIX], one work item per (tile, SEG-pair segment) as K1.  K4 replaces ``_bwd_kernel``: the gradient of those
 state rows in gdata, [T, tile_cap, NFEAT], zero past counts[t], one work
 item per (tile, SEG-pair segment) as K2.  The sum
 per Gaussian over its tiles is autograd's transpose of the gather in
@@ -19,9 +19,9 @@ import torch
 
 from ..binning import Binning
 from ..tiled_raster import NFEAT, NSTATE, PIX, blend_walk
-from .blend import (DEAD_ROWS, NREC, Segments, _check, _check_item_ns,
-                    _check_rows, _check_segments, _check_train, _lib,
-                    _lib_bwd, _ptr, segment_layout)
+from .blend import (DEAD_ROWS, NREC, SEG, Segments, _check, _check_train,
+                    _fwd_launch, _lib, _lib_bwd, _ptr, forward_work,
+                    segment_layout)
 
 
 def build_gdata(feats: torch.Tensor, binning: Binning, tile_cap: int):
@@ -123,6 +123,8 @@ def _check_dense(gdata, counts, grid_x):
 def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
                     chunk: int = 64, records: torch.Tensor | None = None,
                     segments: Segments | None = None,
+                    max_pairs: int | None = None,
+                    n_pass_a: torch.Tensor | None = None,
                     item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
     int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
@@ -131,32 +133,26 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     ``segment_layout(counts)``): K3 also writes K4's records and
     checkpoints, as K1 for K2.  On CPU tensors this is
     ``blend_dense_plain`` and ``records`` and ``segments`` are left as
-    they are; on CUDA tensors it launches K3 or raises.  ``item_ns`` as
-    for ``blend_fwd``."""
+    they are; on CUDA tensors it launches K3 (K1's two passes over the
+    (tile, SEG-pair segment) work items) or raises.  Serving sizes the
+    work from ``max_pairs``, a bound on counts.sum() known on the host
+    (the binning's pair count; default T * cap, which sizes a grid and a
+    partial buffer for every slab full), and reads nothing back.
+    ``n_pass_a`` and ``item_ns`` as for ``blend_fwd``."""
     if gdata.device.type == "cpu":
         return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
     dev = gdata.device
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_fwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
-    ckpt = ckpt_off = None
-    if records is not None:
-        _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
-        _check_segments(segments, num_tiles, dev)
-        ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
-    _check_item_ns(item_ns, num_tiles, dev)
-    state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
-                        device=dev)
+    n_pairs = num_tiles * cap if max_pairs is None else max_pairs
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_dense_fwd_launch(
-            gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x,
-            state.data_ptr(), _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
-            _ptr(item_ns), stream)
-    if err != 0:
-        raise RuntimeError("blend_dense_fwd kernel launch failed: "
-                           + lib.blend_fwd_error_string(err).decode())
+    state = _fwd_launch(
+        lib.blend_dense_fwd_launch,
+        (gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x),
+        num_tiles, forward_work(num_tiles, n_pairs, segments,
+                                max_segs=-(-cap // SEG)),
+        records, segments, n_pass_a, item_ns, dev, "blend_dense_fwd")
     blend_dense_fwd.launches += 1
     return state
 

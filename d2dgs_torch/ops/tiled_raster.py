@@ -188,7 +188,7 @@ def blend_tiles(Tmat, center, normal, colors, opacity, binning: Binning,
         gdata, counts = build_gdata(feats, binning, cfg.tile_cap)
         args = (gdata, counts, grid_x, cfg.chunk)
         state = BlendTilesDense.apply(*args) if train \
-            else blend_dense_fwd(*args)
+            else blend_dense_fwd(*args, max_pairs=binning.pair_rank.shape[0])
     tile_color, tile_allmap = state_to_maps(state)
     return tile_color, tile_allmap, overflow
 

@@ -309,3 +309,61 @@ def test_kernels_refuse_other_segment_length(cuda):
             blend_dense_bwd(gdata, counts, gx, state, records, g, lay)
     assert (blend_fwd.launches, blend_bwd.launches, blend_dense_fwd.launches,
             blend_dense_bwd.launches) == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pallas", "opaque", "packed"])
+@pytest.mark.parametrize("route", ["wq", "dense"])
+def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
+    """K1/K3, one CTA per (tile, 256-pair segment) in two passes, against
+    their plain versions in serving and in training mode, judged as
+    compare_states judges (no flipped pixel at 48x64); training mode
+    leaves the state as serving computes it and writes the records and
+    checkpoints of the plain emulation of its algorithm; the first pass
+    counts its evaluations and both passes time their items."""
+    from d2dgs_torch.ops.cuda.blend import (NREC, blend_fwd_segments_plain,
+                                            compare_states,
+                                            pack_checkpoints, segment_layout)
+    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
+                                                  blend_dense_plain)
+    from d2dgs_torch.ops.tiled_raster import CKPT_ROWS, PIX
+    cam, arrs = _scene(kind == "opaque", cuda, packed=kind == "packed")
+    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    fs, rank, start, count, _ = _kernel_args(cam, *arrs)
+    if route == "wq":
+        run = lambda **k: blend_fwd(fs, rank, start, count, gx, **k)
+        plain = blend_tiles_plain(fs, rank, start, count, gx)
+        launches = lambda: blend_fwd.launches
+    else:
+        run = lambda **k: blend_dense_fwd(gdata, counts, gx, **k)
+        plain = blend_dense_plain(gdata, counts, gx)
+        launches = lambda: blend_dense_fwd.launches
+    seg = segment_layout(counts)
+    records = torch.empty((counts.shape[0], NREC, PIX), dtype=torch.int32,
+                          device=cuda)
+    n_items = seg.items.shape[0]
+    item_ns = torch.zeros((2, n_items, 2), dtype=torch.int64, device=cuda)
+    n_pass_a = torch.zeros(1, dtype=torch.int64, device=cuda)
+    before = launches()
+    serve = run(item_ns=item_ns, n_pass_a=n_pass_a)
+    state = run(records=records, segments=seg)
+    torch.cuda.synchronize()
+    assert launches() == before + 2
+    for st, mode in ((serve, "serving"), (state, "training")):
+        res = compare_states(st, plain)
+        assert res["flipped"] == 0 and res["bad_outside_flips"] == 0, (
+            mode, res["row_max_abs_err"])
+    torch.testing.assert_close(state, serve, rtol=0, atol=0)
+    emu, ck_emu, rec_emu = blend_fwd_segments_plain(gdata, counts, gx,
+                                                    train=True)
+    torch.testing.assert_close(records, rec_emu, rtol=0, atol=0)
+    ck = pack_checkpoints(ck_emu, seg)
+    for r in range(len(CKPT_ROWS)):
+        tol = IMG if CKPT_ROWS[r] in (0, 4, 5, 6) else AUX
+        torch.testing.assert_close(seg.ckpt[:, r], ck[:, r], **tol)
+    assert bool((item_ns[:, :, 1] >= item_ns[:, :, 0]).all())
+    assert bool((item_ns[:, :, 0] > 0).all())
+    multi = int((counts > 256).sum())
+    assert (int(n_pass_a) > 0) == (multi > 0)
+    if kind == "packed":
+        assert multi > 0 and int(counts.max()) > 512
