@@ -47,8 +47,9 @@ DEAD_ROWS = (ROW_DONE, ROW_D1, ROW_D2, ROW_N_EVAL, ROW_N_BLEND)
 # pairs per work item (segment) of every blend kernel: a training forward
 # checkpoints its accumulators (CKPT_ROWS) at every SEG-th pair
 SEG = 256
-# rows per pixel of a forward work item's partial state (csrc/blend_fwd.cu)
-NPART = 17
+# rows per pixel of a forward work item's partial state and its pass-A
+# candidate bits (csrc/blend_fwd.cu)
+NPART = 25
 
 
 class Segments(NamedTuple):
