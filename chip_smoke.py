@@ -570,44 +570,56 @@ def fwd_walks(state):
 
 
 def fwd_item_report(tag, label, run, state, counts, work) -> dict:
-    """Both passes of a serving forward (K1 or K3) timed per work item:
+    """Both passes of a serving forward (K1 or K3) timed per work unit:
     ``run(**kw)`` launches it with the keywords given; ``state`` its
     state rows, ``counts`` the clamped pair counts, ``work`` the
-    wrapper's (items, slots) bounds.  Pass A's items are the segments but
-    a tile's last; pass B's walk their share of the tile's walk.  Logs and
-    returns each pass's item_report, the forward's span and longest item,
-    pass A's pair-pixel evaluations beside the walk's (state row 14), and
-    the partial buffer's bytes."""
-    from d2dgs_torch.ops.cuda.blend import NPART, SEG, segment_layout
+    wrapper's (items, slots, units) bounds.  The first pass runs one CTA
+    per UNIT pairs of a tile, the second one per (tile, SEG-pair segment)
+    item, which walks its share of the tile's walk.  Logs and returns each
+    pass's item_report, the forward's span and longest unit or item, the
+    first pass's pair-pixel evaluations beside the walk's (state row 14),
+    and the scratch bytes: the first pass's products and candidate bits
+    and the partial states."""
+    from d2dgs_torch.ops.cuda.blend import (NCAND, NPART, SEG, UNIT,
+                                            segment_layout)
     from d2dgs_torch.ops.tiled_raster import PIX, ROW_N_EVAL
-    items = segment_layout(counts).items
     dev = state.device
-    item_ns = torch.zeros((2, items.shape[0], 2), dtype=torch.int64,
+    c = counts.long()
+    items = segment_layout(counts).items
+    n_units = -(-c // UNIT)
+    unit_tile = torch.repeat_interleave(torch.arange(c.numel(), device=dev),
+                                        n_units)
+    unit_k = torch.arange(unit_tile.numel(), device=dev) \
+        - (torch.cumsum(n_units, 0) - n_units)[unit_tile]
+    unit_ns = torch.zeros((unit_tile.numel(), 2), dtype=torch.int64,
                           device=dev)
+    item_ns = torch.zeros((items.shape[0], 2), dtype=torch.int64, device=dev)
     n_pass_a = torch.zeros(1, dtype=torch.int64, device=dev)
-    run(item_ns=item_ns, n_pass_a=n_pass_a)
+    run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a)
     torch.cuda.synchronize()
     t, s = items.long().unbind(1)
-    n_own = torch.clamp_min((counts.long() + SEG - 1) // SEG, 1)
-    walk_a = torch.where(s < n_own[t] - 1, SEG, 0)
     walk_b = torch.clamp(fwd_walks(state)[t] - s * SEG, 0, SEG)
-    rep_a = item_report(tag, f"{label} pass A", item_ns[0], t, walk_a,
+    rep_a = item_report(tag, f"{label} pass A", unit_ns, unit_tile,
+                        torch.clamp(c[unit_tile] - unit_k * UNIT, 0, UNIT),
                         counts)
-    rep_b = item_report(tag, f"{label} pass B", item_ns[1], t, walk_b,
-                        counts)
-    res = {"items": int(items.shape[0]), "pass_a": rep_a, "pass_b": rep_b,
-           "span_us": float(item_ns[1, :, 1].max() - item_ns[0, :, 0].min())
+    rep_b = item_report(tag, f"{label} pass B", item_ns, t, walk_b, counts)
+    cand_bytes = work[0] * NCAND * PIX * 4
+    fold_bytes = work[1] * NPART * PIX * 4
+    res = {"items": int(items.shape[0]), "units": int(unit_tile.numel()),
+           "pass_a": rep_a, "pass_b": rep_b,
+           "span_us": float(item_ns[:, 1].max() - unit_ns[:, 0].min())
            / 1e3,
            "longest_us": max(rep_a["slowest_us"], rep_b["slowest_us"]),
            "pass_a_evals": int(n_pass_a),
            "walk_evals": float(state[:, ROW_N_EVAL].to(torch.float64).sum()),
-           "grid_items": work[0], "partial_bytes": work[1] * NPART * PIX * 4}
-    log(f"[{tag}] {label} forward: {res['items']} work items (grid "
-        f"{work[0]}), span {res['span_us']:.1f} us (pass A "
-        f"{rep_a['span_us']:.1f}, pass B {rep_b['span_us']:.1f}), longest "
-        f"item {res['longest_us']:.1f} us; pass A evaluations "
-        f"{res['pass_a_evals']} beside the walk's {res['walk_evals']:.0f}; "
-        f"partial buffer {res['partial_bytes']} B")
+           "grid": work, "partial_bytes": cand_bytes + fold_bytes}
+    log(f"[{tag}] {label} forward: {res['units']} units (grid {work[2]}) "
+        f"and {res['items']} work items (grid {work[0]}), span "
+        f"{res['span_us']:.1f} us (pass A {rep_a['span_us']:.1f}, pass B "
+        f"{rep_b['span_us']:.1f}), longest {res['longest_us']:.1f} us; pass "
+        f"A evaluations {res['pass_a_evals']} beside the walk's "
+        f"{res['walk_evals']:.0f}; scratch {res['partial_bytes']} B (pass A "
+        f"{cand_bytes}, partial states {fold_bytes})")
     return res
 
 
@@ -637,10 +649,19 @@ def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
     return res
 
 
+def scratch_bytes(work) -> int:
+    """The forward's scratch bytes for the wrapper's (items, slots, units)
+    bounds: the first pass's rows per item and the partial states."""
+    from d2dgs_torch.ops.cuda.blend import NCAND, NPART
+    from d2dgs_torch.ops.tiled_raster import PIX
+    return (work[0] * NCAND + work[1] * NPART) * PIX * 4
+
+
 def fwd_fields(rep) -> dict:
     """A forward kernel's work-item fields of the kernels line, from
     fwd_item_report."""
-    return {"work_items": rep["items"], "longest_item_us": rep["longest_us"],
+    return {"work_items": rep["items"], "pass_a_units": rep["units"],
+            "longest_item_us": rep["longest_us"],
             "items_span_us": rep["span_us"],
             "partial_bytes": rep["partial_bytes"],
             "partial_bytes_training": rep["train_partial_bytes"],
@@ -757,8 +778,8 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     """K3 and K4 against their plain versions on the two 48x64 scenes and
     the full-width t=0.5 view, the view again at a tile_cap below its
     busiest tile, then their times beside their bounds and plain times."""
-    from d2dgs_torch.ops.cuda.blend import (NPART, NREC, blend_fwd,
-                                            forward_work, segment_layout)
+    from d2dgs_torch.ops.cuda.blend import (NREC, blend_fwd, forward_work,
+                                            segment_layout)
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain,
@@ -835,8 +856,8 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
             "phase 5a", "K3", lambda **k: blend_dense_fwd(
                 gdata, counts, gx_t, max_pairs=n_pairs, **k), state, counts,
             forward_work(gdata.shape[0], n_pairs))
-        k3_items["train_partial_bytes"] = forward_work(
-            gdata.shape[0], n_pairs, seg)[1] * NPART * PIX * 4
+        k3_items["train_partial_bytes"] = scratch_bytes(
+            forward_work(gdata.shape[0], n_pairs, seg))
         k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t,
                                                 max_pairs=n_pairs), reps=20)
         k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
@@ -1075,7 +1096,7 @@ def main() -> int:
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
     from d2dgs_torch.ops.cuda import blend as blend_lib
-    from d2dgs_torch.ops.cuda.blend import (NPART, NREC, SOURCE, SOURCE_BWD,
+    from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
                                             forward_work, segment_layout)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
@@ -1348,8 +1369,8 @@ def main() -> int:
             "phase 4", "K1", lambda **k: blend_fwd(*args_t, **k), state_t,
             bin_t.tile_count,
             forward_work(n_tiles_t, bin_t.pair_rank.shape[0]))
-        k1_items["train_partial_bytes"] = forward_work(
-            n_tiles_t, bin_t.pair_rank.shape[0], seg_t)[1] * NPART * PIX * 4
+        k1_items["train_partial_bytes"] = scratch_bytes(
+            forward_work(n_tiles_t, bin_t.pair_rank.shape[0], seg_t))
         k1_train_ms = cuda_ms(lambda: blend_fwd(
             *args_t, records=records, segments=seg_t), reps=20)
         k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)

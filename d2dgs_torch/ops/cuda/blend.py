@@ -47,9 +47,13 @@ DEAD_ROWS = (ROW_DONE, ROW_D1, ROW_D2, ROW_N_EVAL, ROW_N_BLEND)
 # pairs per work item (segment) of every blend kernel: a training forward
 # checkpoints its accumulators (CKPT_ROWS) at every SEG-th pair
 SEG = 256
-# rows per pixel of a forward work item's partial state and its pass-A
-# candidate bits (csrc/blend_fwd.cu)
-NPART = 25
+# the forward kernels (csrc/blend_fwd.cu): rows per pixel of a work
+# item's partial state, pairs per first-pass unit, and the first pass's
+# rows per work item (each unit's transmittance product, then SEG / 32
+# words of candidate bits)
+NPART = 16
+UNIT = 64
+NCAND = SEG // UNIT + SEG // 32
 
 
 class Segments(NamedTuple):
@@ -101,33 +105,37 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
 
 def forward_work(num_tiles: int, n_pairs: int,
                  segments: Segments | None = None,
-                 max_segs: int | None = None) -> tuple[int, int]:
-    """(items, slots): the forward kernels' grid of work items and their
-    partial slots, as bounds known on the host (no read of the counts).
-    Tile t has max(1, ceil(c / SEG)) <= 1 + c // SEG items, so counts
+                 max_segs: int | None = None) -> tuple[int, int, int]:
+    """(items, slots, units): the forward kernels' grids of work items
+    and of first-pass units and the partial slots, as bounds known on the
+    host (no read of the counts).  Tile t has max(1, ceil(c / SEG)) <= 1
+    + c // SEG items and ceil(c / UNIT) <= 1 + c // UNIT units, so counts
     summing to at most ``n_pairs`` (and at most ``max_segs`` segments
-    each) give at most num_tiles + n_pairs // SEG; only tiles of more
-    than one segment keep partials, ceil(c / SEG) <= 2 c / SEG each.  A
-    training layout (``segments``) gives the items exactly and at most
-    2 n_bound slots (each such tile has at least one checkpoint)."""
+    each) give at most num_tiles + n_pairs // SEG items and num_tiles +
+    n_pairs // UNIT units; only tiles of more than one segment keep
+    partials, ceil(c / SEG) <= 2 c / SEG each.  A training layout
+    (``segments``) gives the items exactly and at most 2 n_bound slots
+    (each such tile has at least one checkpoint)."""
     if segments is not None:
-        return segments.items.shape[0], 2 * segments.ckpt.shape[0]
-    items = num_tiles + n_pairs // SEG
-    if max_segs is not None:
-        items = min(items, num_tiles * max_segs)
-    return items, min(items, 2 * n_pairs // SEG)
+        items, slots = segments.items.shape[0], 2 * segments.ckpt.shape[0]
+    else:
+        items = num_tiles + n_pairs // SEG
+        if max_segs is not None:
+            items = min(items, num_tiles * max_segs)
+        slots = min(items, 2 * n_pairs // SEG)
+    units = min(items * (SEG // UNIT), num_tiles + n_pairs // UNIT)
+    return items, slots, units
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
+    timers = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 8 + [ctypes.c_int,
-                                                     ctypes.c_void_p]
+        ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + timers
     lib.blend_fwd_launch.restype = ctypes.c_int
     lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p] * 8 + [ctypes.c_int,
-                                                     ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + timers
     lib.blend_dense_fwd_launch.restype = ctypes.c_int
     lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
     lib.blend_fwd_error_string.restype = ctypes.c_char_p
@@ -229,6 +237,7 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               records: torch.Tensor | None = None,
               segments: Segments | None = None,
               n_pass_a: torch.Tensor | None = None,
+              unit_ns: torch.Tensor | None = None,
               item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
@@ -242,13 +251,14 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     CPU tensors this is ``blend_tiles_plain`` (which steps ``chunk`` pairs
     at a time) and ``records`` and ``segments`` are left as they are,
     since the plain backward needs neither; on CUDA tensors it launches
-    the kernel, one CTA per (tile, SEG-pair segment) in each of its two
-    passes, or raises.  Serving sizes the work from B, the pair count,
-    and reads nothing back.  ``n_pass_a`` (optional int64 [1] on the
-    card) is incremented by the pair-pixel evaluations of the first pass
-    (the transmittance products), the redesign's extra work; ``item_ns``
-    (optional int64 [2, I, 2]) receives each pass's %globaltimer stamps at
-    the start and end of work items 0..I-1.
+    the kernel, or raises: a first pass of one CTA per UNIT pairs of a
+    tile (transmittance products and candidate pairs), then one CTA per
+    (tile, SEG-pair segment).  Serving sizes the work from B, the pair
+    count, and reads nothing back.  ``n_pass_a`` (optional int64 [1] on
+    the card) is incremented by the first pass's pair-pixel evaluations,
+    the redesign's extra work; ``unit_ns`` [U, 2] and ``item_ns`` [I, 2]
+    (optional int64) receive the %globaltimer stamps at the start and end
+    of the first pass's units 0..U-1 and of the work items 0..I-1.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -264,16 +274,17 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         (feats_sorted.data_ptr(), pair_rank.data_ptr(),
          tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x),
         num_tiles, forward_work(num_tiles, pair_rank.shape[0], segments),
-        records, segments, n_pass_a, item_ns, dev, "blend_fwd")
+        records, segments, n_pass_a, unit_ns, item_ns, dev, "blend_fwd")
     blend_fwd.launches += 1
     return state
 
 
 def _fwd_launch(launcher, head, num_tiles, work, records, segments,
-                n_pass_a, item_ns, dev, name):
+                n_pass_a, unit_ns, item_ns, dev, name):
     """Checks of a forward kernel's optional inputs, its output and
-    scratch buffers (the work-item layout, the partial slots), the launch;
-    returns the state rows or raises."""
+    scratch buffers (the work layout, the first pass's products and
+    candidate bits, the partial slots), the launch; returns the state
+    rows or raises."""
     ckpt = ckpt_off = None
     if records is not None:
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
@@ -281,26 +292,29 @@ def _fwd_launch(launcher, head, num_tiles, work, records, segments,
         ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
     if n_pass_a is not None:
         _check("n_pass_a", n_pass_a, torch.int64, 1, dev)
-    n_timed = 0
-    if item_ns is not None:
-        _check("item_ns", item_ns, torch.int64, 3, dev)
-        if item_ns.shape[0] != 2 or item_ns.shape[2] != 2:
-            raise ValueError(f"item_ns must be [2, I, 2], got "
-                             f"{tuple(item_ns.shape)}")
-        n_timed = item_ns.shape[1]
-    n_items, n_slots = work
+    for t, what in ((unit_ns, "unit_ns"), (item_ns, "item_ns")):
+        if t is not None:
+            _check(what, t, torch.int64, 2, dev)
+            if t.shape[1] != 2:
+                raise ValueError(f"{what} must be [n, 2], got "
+                                 f"{tuple(t.shape)}")
+    n_items, n_slots, n_units = work
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
-    layout = torch.empty(3 * num_tiles + 1 + 2 * n_items, dtype=torch.int32,
-                         device=dev)
+    layout = torch.empty(3 * num_tiles + 2 + 2 * (n_items + n_units),
+                         dtype=torch.int32, device=dev)
+    cand = torch.empty((n_items, NCAND, PIX), dtype=torch.float32,
+                       device=dev)
     part = torch.empty((n_slots, NPART, PIX), dtype=torch.float32,
                        device=dev)
+    timed = lambda t: 0 if t is None else t.shape[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launcher(*head, n_items, state.data_ptr(), _ptr(records),
-                       _ptr(ckpt), _ptr(ckpt_off), layout.data_ptr(),
-                       _ptr(part), _ptr(n_pass_a), _ptr(item_ns), n_timed,
-                       stream)
+        err = launcher(*head, n_items, n_units, state.data_ptr(),
+                       _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
+                       layout.data_ptr(), _ptr(cand), _ptr(part),
+                       _ptr(n_pass_a), _ptr(unit_ns), timed(unit_ns),
+                       _ptr(item_ns), timed(item_ns), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + _lib().blend_fwd_error_string(err).decode())

@@ -125,6 +125,7 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
                     segments: Segments | None = None,
                     max_pairs: int | None = None,
                     n_pass_a: torch.Tensor | None = None,
+                    unit_ns: torch.Tensor | None = None,
                     item_ns: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
     int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
@@ -133,12 +134,11 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     ``segment_layout(counts)``): K3 also writes K4's records and
     checkpoints, as K1 for K2.  On CPU tensors this is
     ``blend_dense_plain`` and ``records`` and ``segments`` are left as
-    they are; on CUDA tensors it launches K3 (K1's two passes over the
-    (tile, SEG-pair segment) work items) or raises.  Serving sizes the
-    work from ``max_pairs``, a bound on counts.sum() known on the host
-    (the binning's pair count; default T * cap, which sizes a grid and a
-    partial buffer for every slab full), and reads nothing back.
-    ``n_pass_a`` and ``item_ns`` as for ``blend_fwd``."""
+    they are; on CUDA tensors it launches K3 (K1's two passes) or raises.
+    The work is sized from ``max_pairs``, a bound on counts.sum() known on
+    the host (the binning's pair count; default T * cap, which sizes the
+    grids and buffers for every slab full), and nothing is read back.
+    ``n_pass_a``, ``unit_ns`` and ``item_ns`` as for ``blend_fwd``."""
     if gdata.device.type == "cpu":
         return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
     dev = gdata.device
@@ -152,7 +152,8 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
         (gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x),
         num_tiles, forward_work(num_tiles, n_pairs, segments,
                                 max_segs=-(-cap // SEG)),
-        records, segments, n_pass_a, item_ns, dev, "blend_dense_fwd")
+        records, segments, n_pass_a, unit_ns, item_ns, dev,
+        "blend_dense_fwd")
     blend_dense_fwd.launches += 1
     return state
 
@@ -214,12 +215,13 @@ class BlendTilesDense(torch.autograd.Function):
     outside, so autograd sums the per-pair gradients per Gaussian."""
 
     @staticmethod
-    def forward(ctx, gdata, counts, grid_x, chunk=64):
+    def forward(ctx, gdata, counts, grid_x, chunk=64, max_pairs=None):
         records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
                               device=gdata.device)
         segments = segment_layout(counts)
         state = blend_dense_fwd(gdata, counts, grid_x, chunk=chunk,
-                                records=records, segments=segments)
+                                records=records, segments=segments,
+                                max_pairs=max_pairs)
         ctx.save_for_backward(gdata, counts, state, records,
                               *segments.tensors)
         ctx.grid_x, ctx.chunk = grid_x, chunk
@@ -231,4 +233,4 @@ class BlendTilesDense(torch.autograd.Function):
         d_gdata = blend_dense_bwd(gdata, counts, ctx.grid_x, state, records,
                                   g_state.contiguous(), Segments(*segments),
                                   chunk=ctx.chunk)
-        return d_gdata, None, None, None
+        return d_gdata, None, None, None, None

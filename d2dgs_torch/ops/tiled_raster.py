@@ -186,9 +186,11 @@ def blend_tiles(Tmat, center, normal, colors, opacity, binning: Binning,
         state = BlendTiles.apply(*args) if train else blend_fwd(*args)
     else:
         gdata, counts = build_gdata(feats, binning, cfg.tile_cap)
-        args = (gdata, counts, grid_x, cfg.chunk)
-        state = BlendTilesDense.apply(*args) if train \
-            else blend_dense_fwd(*args, max_pairs=binning.pair_rank.shape[0])
+        n_pairs = binning.pair_rank.shape[0]   # sizes K3's work, no read
+        state = BlendTilesDense.apply(gdata, counts, grid_x, cfg.chunk,
+                                      n_pairs) if train \
+            else blend_dense_fwd(gdata, counts, grid_x, cfg.chunk,
+                                 max_pairs=n_pairs)
     tile_color, tile_allmap = state_to_maps(state)
     return tile_color, tile_allmap, overflow
 

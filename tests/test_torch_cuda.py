@@ -320,8 +320,9 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
     compare_states judges (no flipped pixel at 48x64); training mode
     leaves the state as serving computes it and writes the records and
     checkpoints of the plain emulation of its algorithm; the first pass
-    counts its evaluations and both passes time their items."""
-    from d2dgs_torch.ops.cuda.blend import (NREC, blend_fwd_segments_plain,
+    counts its evaluations and both passes time their units and items."""
+    from d2dgs_torch.ops.cuda.blend import (NREC, UNIT,
+                                            blend_fwd_segments_plain,
                                             compare_states,
                                             pack_checkpoints, segment_layout)
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
@@ -341,11 +342,13 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
     seg = segment_layout(counts)
     records = torch.empty((counts.shape[0], NREC, PIX), dtype=torch.int32,
                           device=cuda)
-    n_items = seg.items.shape[0]
-    item_ns = torch.zeros((2, n_items, 2), dtype=torch.int64, device=cuda)
+    n_units = int((-(-counts.long() // UNIT)).sum())
+    unit_ns = torch.zeros((n_units, 2), dtype=torch.int64, device=cuda)
+    item_ns = torch.zeros((seg.items.shape[0], 2), dtype=torch.int64,
+                          device=cuda)
     n_pass_a = torch.zeros(1, dtype=torch.int64, device=cuda)
     before = launches()
-    serve = run(item_ns=item_ns, n_pass_a=n_pass_a)
+    serve = run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a)
     state = run(records=records, segments=seg)
     torch.cuda.synchronize()
     assert launches() == before + 2
@@ -361,9 +364,12 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
     for r in range(len(CKPT_ROWS)):
         tol = IMG if CKPT_ROWS[r] in (0, 4, 5, 6) else AUX
         torch.testing.assert_close(seg.ckpt[:, r], ck[:, r], **tol)
-    assert bool((item_ns[:, :, 1] >= item_ns[:, :, 0]).all())
-    assert bool((item_ns[:, :, 0] > 0).all())
-    multi = int((counts > 256).sum())
-    assert (int(n_pass_a) > 0) == (multi > 0)
+    for ns in (unit_ns, item_ns):
+        assert bool((ns[:, 1] >= ns[:, 0]).all())
+        assert bool((ns[:, 0] > 0).all())
+    # the first pass evaluates every pair of every pixel, up to its warps'
+    # stops
+    pairs = int(counts.long().sum())
+    assert 0 < int(n_pass_a) <= pairs * PIX
     if kind == "packed":
-        assert multi > 0 and int(counts.max()) > 512
+        assert int(counts.max()) > 512
