@@ -7,12 +7,13 @@ Phases (each one fails the run with a non-zero exit):
      blend sources from d2dgs_torch/csrc with nvcc (one nvcc per source,
      started together) and bind their four entry points (K1 and K3 in
      blend_fwd.cu, K2 and K4 in blend_bwd.cu);
-  2. hold the forward kernel (K1) against its plain PyTorch version on
-     the card: a 48x64 scene of 160 splats, the same scene all opaque
-     (early termination), a packed 48x64 scene of 700 splats (its busiest
-     tile spans three 256-pair backward segments) and the full-width
-     scene of phase 3; check the tiled CUDA render of the small scenes
-     against the dense oracle;
+  2. hold the forward kernel (K1: a first pass of one CTA per 64 pairs of
+     a tile, then one CTA per 256-pair segment) in serving and in training
+     mode against its plain PyTorch version on the card: a 48x64 scene of
+     160 splats, the same scene all opaque (early termination), a packed
+     48x64 scene of 700 splats (its busiest tile spans three 256-pair
+     segments) and the full-width scene of phase 3; check the tiled CUDA
+     render of the small scenes against the dense oracle;
   2b. hold the backward kernel (K2, one CTA per 256-pair segment of a
      tile, from K1's training checkpoints) against its plain version
      (autograd through the plain blend) on the same four scenes, with a
@@ -35,16 +36,18 @@ Phases (each one fails the run with a non-zero exit):
      parameters, one K1 and one K2 launch per step, the densify counts
      and a falling L1, then times the step and its stages, K1 in training
      mode (with its checkpoints), K2 and K2's plain version, and prints
-     the tiles' walk lengths and each K2 work item's %globaltimer
-     duration (the longest, the launch's span), the work-item count and
-     the checkpoint bytes;
+     the tiles' walk lengths, each K2 work item's and each K1 pass's unit
+     or item %globaltimer duration (the longest, the span), the counts,
+     K1's first-pass evaluations, its scratch bytes and the checkpoint
+     bytes;
   5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
      against their plain versions on the three 48x64 scenes and on the
      full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
      view again at a tile_cap of half its busiest tile (K3 must equal K1 on
      the clamped lists, and both routes' overflow the dropped pairs), then
-     time K3, K4 (with its work items, as K2's), their plain versions,
-     K4's zero fill and the dense pair gather;
+     time K3 (with its passes' units and items, as K1's), K4 (with its
+     work items, as K2's), their plain versions, K4's zero fill and the
+     dense pair gather;
   5b. the Trainer at full width on the dense route: a video of 8 orbit
      cameras x 4 times at 800x800 rendered from the phase-3 scene moved by
      the synthetic scene's rigid motion, a 100,000-point initial cloud,
@@ -210,16 +213,13 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     between K1 and the plain forward (``flip`` [T, PIX]) and, with
     ``tiles``, outside those tiles; all 18 feature gradients compared
     max-normalised per column."""
-    from d2dgs_torch.ops.cuda.blend import (NREC, blend_bwd, blend_fwd,
-                                            blend_tiles_plain_vjp,
-                                            segment_layout)
+    from d2dgs_torch.ops.cuda.blend import (blend_bwd, blend_fwd,
+                                            blend_tiles_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
             binning.tile_count, gx)
     num_tiles = binning.tile_start.shape[0]
-    records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
-                          device=feats_sorted.device)
-    seg = segment_layout(binning.tile_count)
+    records, seg = train_buffers(binning.tile_count)
     state = blend_fwd(*args, records=records, segments=seg)
     g = map_cotangent(state, seed=4)
     g = torch.where(flip[:, None, :], 0.0, g)
@@ -578,11 +578,9 @@ def fwd_item_report(tag, label, run, state, counts, work) -> dict:
     item, which walks its share of the tile's walk.  Logs and returns each
     pass's item_report, the forward's span and longest unit or item, the
     first pass's pair-pixel evaluations beside the walk's (state row 14),
-    and the scratch bytes: the first pass's products and candidate bits
-    and the partial states."""
-    from d2dgs_torch.ops.cuda.blend import (NCAND, NPART, SEG, UNIT,
-                                            segment_layout)
-    from d2dgs_torch.ops.tiled_raster import PIX, ROW_N_EVAL
+    and the scratch bytes (scratch_bytes)."""
+    from d2dgs_torch.ops.cuda.blend import SEG, UNIT, segment_layout
+    from d2dgs_torch.ops.tiled_raster import ROW_N_EVAL
     dev = state.device
     c = counts.long()
     items = segment_layout(counts).items
@@ -603,8 +601,6 @@ def fwd_item_report(tag, label, run, state, counts, work) -> dict:
                         torch.clamp(c[unit_tile] - unit_k * UNIT, 0, UNIT),
                         counts)
     rep_b = item_report(tag, f"{label} pass B", item_ns, t, walk_b, counts)
-    cand_bytes = work[0] * NCAND * PIX * 4
-    fold_bytes = work[1] * NPART * PIX * 4
     res = {"items": int(items.shape[0]), "units": int(unit_tile.numel()),
            "pass_a": rep_a, "pass_b": rep_b,
            "span_us": float(item_ns[:, 1].max() - unit_ns[:, 0].min())
@@ -612,14 +608,13 @@ def fwd_item_report(tag, label, run, state, counts, work) -> dict:
            "longest_us": max(rep_a["slowest_us"], rep_b["slowest_us"]),
            "pass_a_evals": int(n_pass_a),
            "walk_evals": float(state[:, ROW_N_EVAL].to(torch.float64).sum()),
-           "grid": work, "partial_bytes": cand_bytes + fold_bytes}
+           "partial_bytes": scratch_bytes(work)}
     log(f"[{tag}] {label} forward: {res['units']} units (grid {work[2]}) "
         f"and {res['items']} work items (grid {work[0]}), span "
         f"{res['span_us']:.1f} us (pass A {rep_a['span_us']:.1f}, pass B "
         f"{rep_b['span_us']:.1f}), longest {res['longest_us']:.1f} us; pass "
         f"A evaluations {res['pass_a_evals']} beside the walk's "
-        f"{res['walk_evals']:.0f}; scratch {res['partial_bytes']} B (pass A "
-        f"{cand_bytes}, partial states {fold_bytes})")
+        f"{res['walk_evals']:.0f}; scratch {res['partial_bytes']} B")
     return res
 
 
@@ -708,15 +703,12 @@ def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
     """K4 against blend_dense_plain_vjp, as check_backward holds K2: a
     seeded cotangent on the map rows, zero at the flipped pixels and, with
     ``tiles``, outside those tiles."""
-    from d2dgs_torch.ops.cuda.blend import NREC, segment_layout
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
     num_tiles = gdata.shape[0]
-    records = torch.empty((num_tiles, NREC, PIX), dtype=torch.int32,
-                          device=gdata.device)
-    seg = segment_layout(counts)
+    records, seg = train_buffers(counts)
     state = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg)
     g = torch.where(flip[:, None, :], 0.0, map_cotangent(state, seed=4))
     if tiles is not None:

@@ -228,7 +228,7 @@ def _check_train(records, segments, g_state, state, num_tiles, dev):
 
 
 def _ptr(t):
-    return None if t is None or t.numel() == 0 else t.data_ptr()
+    return None if t is None else t.data_ptr()
 
 
 def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,

@@ -6,9 +6,9 @@ the autograd function that pairs them, and their plain PyTorch versions
 
 K3 replaces ``_fwd_kernel``: tile t blends rows [0, counts[t]) of its own
 slab of the dense pair buffer gdata [T, tile_cap, NFEAT] into the state
-rows [T, NSTATE, PIX], one work item per (tile, SEG-pair segment) as K1.  K4 replaces ``_bwd_kernel``: the gradient of those
-state rows in gdata, [T, tile_cap, NFEAT], zero past counts[t], one work
-item per (tile, SEG-pair segment) as K2.  The sum
+rows [T, NSTATE, PIX] in K1's two passes.  K4 replaces ``_bwd_kernel``:
+the gradient of those state rows in gdata, [T, tile_cap, NFEAT], zero
+past counts[t], one work item per (tile, SEG-pair segment) as K2.  The sum
 per Gaussian over its tiles is autograd's transpose of the gather in
 ``build_gdata``, as XLA's is in the JAX package.  K3/K4 share their device
 code with K1/K2, so both routes make the same decisions bit for bit.
@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..binning import Binning
-from ..tiled_raster import NFEAT, NSTATE, PIX, blend_walk
+from ..tiled_raster import NFEAT, PIX, blend_walk
 from .blend import (DEAD_ROWS, NREC, SEG, Segments, _check, _check_train,
                     _fwd_launch, _lib, _lib_bwd, _ptr, forward_work,
                     segment_layout)
