@@ -4,10 +4,11 @@ that pairs them.
 
 K1 replaces ``_fwd_wq_kernel`` of d2dgs_tpu/ops/pallas/blend_tpu.py: it
 blends every tile's depth-sorted pair list into the state rows
-[T, NSTATE, PIX] (layout ROW_* in ops/tiled_raster.py), one work item per
-(tile, SEG-pair segment) in two passes (segment transmittance products,
-then each segment's walk from its incoming T, folded per tile); its
-plain PyTorch version is ``blend_tiles_plain``, and
+[T, NSTATE, PIX] (layout ROW_* in ops/tiled_raster.py) in two passes:
+each UNIT-pair unit's transmittance products and kept pairs, then one
+work item per (tile, SEG-pair segment) walking its kept pairs from the
+product of its tile's earlier units, folded per tile; its plain PyTorch
+version is ``blend_tiles_plain``, and
 ``blend_fwd_segments_plain`` emulates its algorithm.  K2 replaces
 ``_bwd_wq_kernel``: from K1's state, per-pixel records and checkpoints
 it computes the gradient of the 18 sorted feature columns, one work item
