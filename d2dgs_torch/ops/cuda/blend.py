@@ -375,12 +375,15 @@ AUX = (1e-4, 1e-5)
 
 def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     """State rows ``sk`` of a blend against a reference's ``sp``.  A pixel
-    'flips' when its termination (done row) or its median-depth choice
-    (median rows) differs; every other pixel must agree within the row
-    tolerances (TIGHT, AUX) and count the same evaluated and blended
-    pairs (rows 14 and 15).  Returns the per-row max errors outside the
-    flips, the flipped and the outside-tolerance pixel counts and the
-    flip mask [T, PIX]."""
+    'flips' when its termination or its median-depth choice (median rows)
+    differs: one side terminated and the other did not (done row), or
+    both terminated at different pairs because one blended the pair the
+    other tripped on (their blended counts differ by one and the side
+    that blended it ends with T within 1e-5 of T_CUTOFF, relative).
+    Every other pixel must agree within the row tolerances (TIGHT, AUX)
+    and count the same evaluated and blended pairs (rows 14 and 15).
+    Returns the per-row max errors outside the flips, the flipped and the
+    outside-tolerance pixel counts and the flip mask [T, PIX]."""
     tol = {ROW_T: TIGHT, ROW_D1: AUX, ROW_D2: AUX, ROW_DEPTH: AUX,
            ROW_DISTORTION: AUX, ROW_MED_D: AUX, ROW_MED_W: AUX}
     for sl, t in ((ROW_COLOR, TIGHT), (ROW_NORMAL, AUX)):
@@ -390,8 +393,13 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
         rtol, atol = tol[r]
         return (sk[:, r] - sp[:, r]).abs() <= atol + rtol * sp[:, r].abs()
 
-    flip = (sk[:, ROW_DONE] != sp[:, ROW_DONE]) | ~close(ROW_MED_D) \
-        | ~close(ROW_MED_W)
+    extra = sk[:, ROW_N_BLEND] - sp[:, ROW_N_BLEND]
+    t_more = torch.where(extra > 0, sk[:, ROW_T], sp[:, ROW_T])
+    trip_moved = (sk[:, ROW_DONE] == 1.0) & (sp[:, ROW_DONE] == 1.0) \
+        & (extra.abs() == 1.0) \
+        & ((t_more - T_CUTOFF).abs() <= 1e-5 * T_CUTOFF)
+    flip = (sk[:, ROW_DONE] != sp[:, ROW_DONE]) | trip_moved \
+        | ~close(ROW_MED_D) | ~close(ROW_MED_W)
     keep = ~flip
     row_err = {r: float((sk[:, r] - sp[:, r]).abs()[keep].max())
                if bool(keep.any()) else 0.0 for r in sorted(tol)}

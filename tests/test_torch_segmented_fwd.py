@@ -336,3 +336,34 @@ def test_training_mode_feeds_the_segmented_backward(views, kind, seg):
     scale = d_wq.abs().amax(dim=0) + 1e-30
     torch.testing.assert_close(d_sorted / scale, d_wq / scale, **GRAD)
     assert float(st[:, ROW_T].min()) < 1.0
+
+
+
+def _judged(changes):
+    """compare_states on two states that differ at one pixel: ``changes``
+    maps a row to its (kernel, reference) values there."""
+    ref = torch.zeros((2, NSTATE, PIX))
+    ref[:, ROW_T] = 0.5
+    out = ref.clone()
+    for r, (k, p) in changes.items():
+        out[0, r, 7], ref[0, r, 7] = k, p
+    res = compare_states(out, ref)
+    return res["flipped"], res["bad_outside_flips"]
+
+
+def test_compare_states_sorts_threshold_flips():
+    """compare_states counts as flips the pixels whose termination or
+    median choice differs, a termination at another pair included when
+    the side that blended the extra pair ends within 1e-5 of T_CUTOFF
+    (the case seen at full width, tools/blend_fwd_flips.py); the same
+    counts with T far from the cutoff, or differing counts of a pixel
+    that did not terminate, stay outside the tolerance."""
+    trip = {ROW_DONE: (1.0, 1.0), ROW_N_EVAL: (129.0, 130.0),
+            ROW_N_BLEND: (34.0, 35.0)}
+    assert _judged({}) == (0, 0)
+    assert _judged({ROW_DONE: (1.0, 0.0)}) == (1, 0)
+    assert _judged({ROW_MED_D: (1.5, 2.5)}) == (1, 0)
+    assert _judged({**trip, ROW_T: (1.1107232e-4, 1.0000001e-4)}) == (1, 0)
+    assert _judged({**trip, ROW_T: (1.1107232e-4, 2e-4)}) == (0, 1)
+    assert _judged({ROW_N_EVAL: (129.0, 130.0),
+                    ROW_N_BLEND: (34.0, 35.0)}) == (0, 1)
