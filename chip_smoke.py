@@ -158,8 +158,10 @@ def check_states(tag, label, sk, sp, pairs):
     comparison and raise past the tolerances."""
     from d2dgs_torch.ops.cuda.blend import compare_states
     res = compare_states(sk, sp)
+    del res["masks"]
     log(f"[{tag}] {label}: pairs {pairs}, flipped "
-        f"pixels {res['flipped']}/{res['pixels']}, outside-tolerance "
+        f"pixels {res['flipped']}/{res['pixels']} (by kind "
+        f"{json.dumps(res['flips'])}), outside-tolerance "
         f"pixels beyond flips {res['bad_outside_flips']}, max |err| per row "
         + json.dumps({str(k): v for k, v in res['row_max_abs_err'].items()}))
     if res["bad_outside_flips"] or \
@@ -180,7 +182,9 @@ def train_buffers(counts):
 
 
 def check_kernel(label, feats_sorted, binning, gx, chunk):
-    """K1 in serving and in training mode against blend_tiles_plain."""
+    """K1 in serving and in training mode against blend_tiles_plain;
+    returns the serving state and its check, with the training mode's
+    flip counts under ``training``."""
     from d2dgs_torch.ops.cuda.blend import blend_fwd
     from d2dgs_torch.ops.tiled_raster import blend_tiles_plain
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
@@ -192,8 +196,10 @@ def check_kernel(label, feats_sorted, binning, gx, chunk):
     sp = blend_tiles_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     pairs = int(binning.num_pairs)
-    check_states("phase 2", label + ", training mode", st, sp, pairs)
-    return sk, check_states("phase 2", label, sk, sp, pairs)
+    train = check_states("phase 2", label + ", training mode", st, sp, pairs)
+    res = check_states("phase 2", label, sk, sp, pairs)
+    res["training"] = {k: train[k] for k in ("flipped", "flips")}
+    return sk, res
 
 
 def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
@@ -569,52 +575,63 @@ def fwd_walks(state):
     return state[:, ROW_N_EVAL].amax(dim=1).to(torch.int64)
 
 
-def fwd_item_report(tag, label, run, state, counts, work) -> dict:
+def fwd_item_report(tag, label, run, state, counts) -> dict:
     """Both passes of a serving forward (K1 or K3) timed per work unit:
     ``run(**kw)`` launches it with the keywords given; ``state`` its
-    state rows, ``counts`` the clamped pair counts, ``work`` the
-    wrapper's (items, slots, units) bounds.  The first pass runs one CTA
+    state rows, ``counts`` the clamped pair counts.  A first launch
+    reports its grids, the second is timed: the first pass runs one CTA
     per UNIT pairs of a tile, the second one per (tile, SEG-pair segment)
-    item, which walks its share of the tile's walk.  Logs and returns each
-    pass's item_report, the forward's span and longest unit or item, the
-    first pass's pair-pixel evaluations beside the walk's (state row 14),
-    and the scratch bytes (scratch_bytes)."""
-    from d2dgs_torch.ops.cuda.blend import SEG, UNIT, segment_layout
+    item, which walks its share of the tile's walk.  The units and items
+    are read back from the layout the timed launch built on the card
+    (forward_layout), whose items must be the backward's
+    (segment_layout).  Logs and returns each pass's item_report, the
+    forward's span and longest unit or item, the first pass's pair-pixel
+    evaluations beside the walk's (state row 14), the grids and the bytes
+    of each scratch buffer the launch allocated."""
+    from d2dgs_torch.ops.cuda.blend import (SEG, UNIT, forward_layout,
+                                            segment_layout)
     from d2dgs_torch.ops.tiled_raster import ROW_N_EVAL
     dev = state.device
-    c = counts.long()
-    items = segment_layout(counts).items
-    n_units = -(-c // UNIT)
-    unit_tile = torch.repeat_interleave(torch.arange(c.numel(), device=dev),
-                                        n_units)
-    unit_k = torch.arange(unit_tile.numel(), device=dev) \
-        - (torch.cumsum(n_units, 0) - n_units)[unit_tile]
-    unit_ns = torch.zeros((unit_tile.numel(), 2), dtype=torch.int64,
+    grids, rep = {}, {}
+    run(report=grids)
+    unit_ns = torch.zeros((grids["grid_units"], 2), dtype=torch.int64,
                           device=dev)
-    item_ns = torch.zeros((items.shape[0], 2), dtype=torch.int64, device=dev)
+    item_ns = torch.zeros((grids["grid_items"], 2), dtype=torch.int64,
+                          device=dev)
     n_pass_a = torch.zeros(1, dtype=torch.int64, device=dev)
-    run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a)
+    run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a, report=rep)
     torch.cuda.synchronize()
+    items, units = forward_layout(rep)
+    if not torch.equal(items, segment_layout(counts).items):
+        raise AssertionError(f"{label}: the forward's work items are not "
+                             f"the backward's segment_layout items")
+    unit_ns, item_ns = unit_ns[:units.shape[0]], item_ns[:items.shape[0]]
+    c = counts.long()
     t, s = items.long().unbind(1)
+    unit_tile, unit_k = units.long().unbind(1)
     walk_b = torch.clamp(fwd_walks(state)[t] - s * SEG, 0, SEG)
     rep_a = item_report(tag, f"{label} pass A", unit_ns, unit_tile,
                         torch.clamp(c[unit_tile] - unit_k * UNIT, 0, UNIT),
                         counts)
     rep_b = item_report(tag, f"{label} pass B", item_ns, t, walk_b, counts)
-    res = {"items": int(items.shape[0]), "units": int(unit_tile.numel()),
+    res = {"items": int(items.shape[0]), "units": int(units.shape[0]),
+           "grid_items": rep["grid_items"], "grid_units": rep["grid_units"],
            "pass_a": rep_a, "pass_b": rep_b,
            "span_us": float(item_ns[:, 1].max() - unit_ns[:, 0].min())
            / 1e3,
            "longest_us": max(rep_a["slowest_us"], rep_b["slowest_us"]),
            "pass_a_evals": int(n_pass_a),
            "walk_evals": float(state[:, ROW_N_EVAL].to(torch.float64).sum()),
-           "partial_bytes": scratch_bytes(work)}
-    log(f"[{tag}] {label} forward: {res['units']} units (grid {work[2]}) "
-        f"and {res['items']} work items (grid {work[0]}), span "
+           "scratch_bytes": rep["scratch_bytes"],
+           "partial_bytes": sum(rep["scratch_bytes"].values())}
+    log(f"[{tag}] {label} forward: {res['units']} units (grid "
+        f"{res['grid_units']}) and {res['items']} work items (grid "
+        f"{res['grid_items']}), read from the card's layout; span "
         f"{res['span_us']:.1f} us (pass A {rep_a['span_us']:.1f}, pass B "
         f"{rep_b['span_us']:.1f}), longest {res['longest_us']:.1f} us; pass "
         f"A evaluations {res['pass_a_evals']} beside the walk's "
-        f"{res['walk_evals']:.0f}; scratch {res['partial_bytes']} B")
+        f"{res['walk_evals']:.0f}; scratch allocated {res['partial_bytes']} "
+        f"B " + json.dumps(res["scratch_bytes"]))
     return res
 
 
@@ -644,27 +661,33 @@ def item_report(tag, label, item_ns, item_tile, item_walk, tile_count):
     return res
 
 
-def scratch_bytes(work) -> int:
-    """The forward's scratch bytes for the wrapper's (items, slots, units)
-    bounds: the first pass's rows per item and the partial states."""
-    from d2dgs_torch.ops.cuda.blend import NCAND, NPART
-    from d2dgs_torch.ops.tiled_raster import PIX
-    return (work[0] * NCAND + work[1] * NPART) * PIX * 4
-
-
 def fwd_fields(rep) -> dict:
     """A forward kernel's work-item fields of the kernels line, from
     fwd_item_report."""
     return {"work_items": rep["items"], "pass_a_units": rep["units"],
+            "grid_items": rep["grid_items"], "grid_units": rep["grid_units"],
             "longest_item_us": rep["longest_us"],
             "items_span_us": rep["span_us"],
             "partial_bytes": rep["partial_bytes"],
+            "scratch_bytes": rep["scratch_bytes"],
             "partial_bytes_training": rep["train_partial_bytes"],
             "pass_a_span_us": rep["pass_a"]["span_us"],
             "pass_b_span_us": rep["pass_b"]["span_us"],
             "pass_a_longest_us": rep["pass_a"]["slowest_us"],
             "pass_b_longest_us": rep["pass_b"]["slowest_us"],
             "pass_a_evaluations": rep["pass_a_evals"]}
+
+
+def flip_fields(checks: dict) -> dict:
+    """A forward kernel's flips of the kernels line, from check_kernel or
+    check_dense_kernel results by scene: each kind's count in serving and
+    in training mode, and the moved terminations on their own."""
+    kinds = {label: {"serving": r["flips"], "training": r["training"]["flips"]}
+             for label, r in checks.items()}
+    return {"flips_by_kind": kinds,
+            "trip_moved_pixels": {label: {m: f["trip_moved"]
+                                          for m, f in k.items()}
+                                  for label, k in kinds.items()}}
 
 
 def dense_inputs(feats_sorted, binning, tile_cap: int):
@@ -683,33 +706,41 @@ def dense_row_bytes(counts) -> int:
     return int(counts.to(torch.int64).sum()) * NFEAT * 4 + counts.numel() * 4
 
 
-def check_dense_kernel(label, gdata, counts, gx, chunk):
+def check_dense_kernel(label, gdata, counts, gx, chunk, max_pairs):
     """K3 in serving and in training mode against blend_dense_plain on
-    one view."""
+    one view, its work sized from ``max_pairs`` (the binning's pair
+    count) as the render path sizes it; returns as check_kernel."""
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
                                                   blend_dense_plain)
-    sk = blend_dense_fwd(gdata, counts, gx)
+    sk = blend_dense_fwd(gdata, counts, gx, max_pairs=max_pairs)
     records, seg = train_buffers(counts)
-    st = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg)
+    st = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg,
+                         max_pairs=max_pairs)
     torch.cuda.synchronize()
     sp = blend_dense_plain(gdata, counts, gx, chunk=chunk)
     torch.cuda.synchronize()
     pairs = int(counts.to(torch.int64).sum())
-    check_states("phase 5a", label + ", training mode", st, sp, pairs)
-    return sk, check_states("phase 5a", label, sk, sp, pairs)
+    train = check_states("phase 5a", label + ", training mode", st, sp,
+                         pairs)
+    res = check_states("phase 5a", label, sk, sp, pairs)
+    res["training"] = {k: train[k] for k in ("flipped", "flips")}
+    return sk, res
 
 
-def check_dense_backward(label, gdata, counts, gx, chunk, flip, tiles=None):
+def check_dense_backward(label, gdata, counts, gx, chunk, max_pairs, flip,
+                         tiles=None):
     """K4 against blend_dense_plain_vjp, as check_backward holds K2: a
     seeded cotangent on the map rows, zero at the flipped pixels and, with
-    ``tiles``, outside those tiles."""
+    ``tiles``, outside those tiles; K3's work sized as in
+    check_dense_kernel."""
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
     num_tiles = gdata.shape[0]
     records, seg = train_buffers(counts)
-    state = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg)
+    state = blend_dense_fwd(gdata, counts, gx, records=records, segments=seg,
+                            max_pairs=max_pairs)
     g = torch.where(flip[:, None, :], 0.0, map_cotangent(state, seed=4))
     if tiles is not None:
         keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
@@ -770,8 +801,7 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
     """K3 and K4 against their plain versions on the two 48x64 scenes and
     the full-width t=0.5 view, the view again at a tile_cap below its
     busiest tile, then their times beside their bounds and plain times."""
-    from d2dgs_torch.ops.cuda.blend import (NREC, blend_fwd, forward_work,
-                                            segment_layout)
+    from d2dgs_torch.ops.cuda.blend import NREC, blend_fwd, segment_layout
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd,
                                                   blend_dense_plain,
@@ -784,20 +814,22 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         alive = torch.ones(arrs[0].shape[0], dtype=torch.bool, device=dev)
         fs, binning, gx = splat_inputs(*arrs, alive, cam_s, cfg)
         gdata, counts = dense_inputs(fs, binning, cfg.tile_cap)
+        n_pairs = binning.pair_rank.shape[0]
         _, checks[label] = check_dense_kernel(label, gdata, counts, gx,
-                                              cfg.chunk)
+                                              cfg.chunk, n_pairs)
         grads[label] = check_dense_backward(label, gdata, counts, gx,
-                                            cfg.chunk,
+                                            cfg.chunk, n_pairs,
                                             checks[label].pop("flip_mask"))
     with torch.no_grad():
         gdata, counts = dense_inputs(fs_t, bin_t, cfg.tile_cap)
+        n_pairs = bin_t.pair_rank.shape[0]
         label = "800x800 t=0.5"
         state_k3, checks[label] = check_dense_kernel(label, gdata, counts,
-                                                     gx_t, cfg.chunk)
+                                                     gx_t, cfg.chunk, n_pairs)
         tiles = heavy_and_random_tiles(bin_t.tile_count, 16, 48, seed=8)
         grads[label] = check_dense_backward(
             label + ", 16 heaviest + 48 seeded tiles", gdata, counts, gx_t,
-            cfg.chunk, checks[label].pop("flip_mask"), tiles=tiles)
+            cfg.chunk, n_pairs, checks[label].pop("flip_mask"), tiles=tiles)
 
         # truncation on the card: half the busiest tile's pairs
         busiest = int(bin_t.tile_count.max())
@@ -805,7 +837,7 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         g_cut, c_cut = dense_inputs(fs_t, bin_t, cap)
         label_cut = f"800x800 t=0.5, tile_cap {cap} < busiest {busiest}"
         s_cut, checks[label_cut] = check_dense_kernel(label_cut, g_cut, c_cut,
-                                                      gx_t, cfg.chunk)
+                                                      gx_t, cfg.chunk, n_pairs)
         checks[label_cut].pop("flip_mask")
         k1_cut = blend_fwd(fs_t, bin_t.pair_rank, bin_t.tile_start,
                            torch.clamp_max(bin_t.tile_count, cap), gx_t)
@@ -830,8 +862,10 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
                               device=dev)
         seg = segment_layout(counts)
+        train_rep = {}
         state = blend_dense_fwd(gdata, counts, gx_t, records=records,
-                                segments=seg)
+                                segments=seg, max_pairs=n_pairs,
+                                report=train_rep)
         g = map_cotangent(state, seed=9)
         n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
         blend_dense_bwd(gdata, counts, gx_t, state, records, g, seg,
@@ -843,17 +877,16 @@ def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
         torch.cuda.synchronize()
         k4_items = item_report("phase 5a", "K4", item_ns, seg.items[:, 0],
                                item_walks(records, seg), counts)
-        n_pairs = bin_t.pair_rank.shape[0]
         k3_items = fwd_item_report(
             "phase 5a", "K3", lambda **k: blend_dense_fwd(
-                gdata, counts, gx_t, max_pairs=n_pairs, **k), state, counts,
-            forward_work(gdata.shape[0], n_pairs))
-        k3_items["train_partial_bytes"] = scratch_bytes(
-            forward_work(gdata.shape[0], n_pairs, seg))
+                gdata, counts, gx_t, max_pairs=n_pairs, **k), state, counts)
+        k3_items["train_partial_bytes"] = sum(
+            train_rep["scratch_bytes"].values())
         k3_ms = cuda_ms(lambda: blend_dense_fwd(gdata, counts, gx_t,
                                                 max_pairs=n_pairs), reps=20)
         k3_train_ms = cuda_ms(lambda: blend_dense_fwd(
-            gdata, counts, gx_t, records=records, segments=seg), reps=20)
+            gdata, counts, gx_t, records=records, segments=seg,
+            max_pairs=n_pairs), reps=20)
         k4_ms = cuda_ms(lambda: blend_dense_bwd(gdata, counts, gx_t, state,
                                                 records, g, seg), reps=20)
         # the wrapper's zero fill of d_gdata, inside K4's time
@@ -1090,7 +1123,7 @@ def main() -> int:
     from d2dgs_torch.ops.cuda import blend as blend_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
-                                            forward_work, segment_layout)
+                                            segment_layout)
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
     from d2dgs_torch.ops.tiled_raster import (PIX, blend_tiles_plain,
@@ -1123,7 +1156,7 @@ def main() -> int:
     # ---- phase 2 and 2b: kernels vs plain on small scenes ----
     H, W = 48, 64
     cam_s = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=H, W=W, device=dev)
-    bwd_checks = {}
+    bwd_checks, fwd_checks = {}, {}
     for label in SMALL_SCENES:
         arrs = [torch.as_tensor(a, device=dev) for a in small_scene(label)]
         means, scales, quats, opac, colors = arrs
@@ -1132,7 +1165,8 @@ def main() -> int:
                                        alive, cam_s, cfg)
         _, res = check_kernel(label, fs, binning, gx, cfg.chunk)
         bwd_checks[label] = check_backward(label, fs, binning, gx, cfg.chunk,
-                                           res["flip_mask"])
+                                           res.pop("flip_mask"))
+        fwd_checks[label] = res
         bg = torch.tensor([0.2, 0.1, 0.4], device=dev)
         ct, at, *_ = rasterize_tiled(means, scales, quats, opac, colors,
                                      cam_s, bg, cfg=cfg)
@@ -1212,8 +1246,8 @@ def main() -> int:
         tiles0 = heavy_and_random_tiles(bin0.tile_count, 16, 48, seed=8)
         bwd_checks["800x800 t=0"] = res_k2 = check_backward(
             "800x800 t=0, 16 heaviest + 48 seeded tiles", fs0, bin0, gx0,
-            cfg.chunk, res0["flip_mask"], tiles=tiles0)
-        del res0["flip_mask"]
+            cfg.chunk, res0.pop("flip_mask"), tiles=tiles0)
+        fwd_checks["800x800 t=0"] = res0
 
         # ---- phase 3: the served path, counted ----
         reset_counts()
@@ -1343,7 +1377,9 @@ def main() -> int:
         records = torch.empty((bin_t.tile_start.shape[0], NREC, PIX),
                               dtype=torch.int32, device=dev)
         seg_t = segment_layout(bin_t.tile_count)
-        state_t = blend_fwd(*args_t, records=records, segments=seg_t)
+        train_rep = {}
+        state_t = blend_fwd(*args_t, records=records, segments=seg_t,
+                            report=train_rep)
         g_t = map_cotangent(state_t, seed=9)
         n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
         blend_bwd(*args_t, state_t, records, g_t, seg_t, n_reduce=n_reduce)
@@ -1356,13 +1392,11 @@ def main() -> int:
             + json.dumps(hist_t))
         k2_items = item_report("phase 4", "K2", item_ns, seg_t.items[:, 0],
                                item_walks(records, seg_t), bin_t.tile_count)
-        n_tiles_t = bin_t.tile_start.shape[0]
         k1_items = fwd_item_report(
             "phase 4", "K1", lambda **k: blend_fwd(*args_t, **k), state_t,
-            bin_t.tile_count,
-            forward_work(n_tiles_t, bin_t.pair_rank.shape[0]))
-        k1_items["train_partial_bytes"] = scratch_bytes(
-            forward_work(n_tiles_t, bin_t.pair_rank.shape[0], seg_t))
+            bin_t.tile_count)
+        k1_items["train_partial_bytes"] = sum(
+            train_rep["scratch_bytes"].values())
         k1_train_ms = cuda_ms(lambda: blend_fwd(
             *args_t, records=records, segments=seg_t), reps=20)
         k1_serve_ms = cuda_ms(lambda: blend_fwd(*args_t), reps=20)
@@ -1424,7 +1458,8 @@ def main() -> int:
         + train_launches["blend_fwd"],
         "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
-        "flipped_pixels": res0["flipped"], "ms": kernel_ms[0],
+        "flipped_pixels": res0["flipped"], **flip_fields(fwd_checks),
+        "ms": kernel_ms[0],
         "ms_t05": k1_serve_ms, "bound_ms_t05": bound1_t["bound_ms"],
         "ms_training_mode": k1_train_ms,
         "plain_ms": plain_ms, "bound_ms": bound1["bound_ms"],
@@ -1457,6 +1492,7 @@ def main() -> int:
         "max_abs_err": res5a["k3_max_abs_err"],
         "flipped_pixels": {k: v["flipped"]
                            for k, v in res5a["checks"].items()},
+        **flip_fields(res5a["checks"]),
         "ms": res5a["k3_ms"], "ms_training_mode": res5a["k3_train_ms"],
         "plain_ms": res5a["k3_plain_ms"], "bound_ms": b3["bound_ms"],
         "bound_by": b3["bound_by"], "library_ms": None,

@@ -239,7 +239,8 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               segments: Segments | None = None,
               n_pass_a: torch.Tensor | None = None,
               unit_ns: torch.Tensor | None = None,
-              item_ns: torch.Tensor | None = None) -> torch.Tensor:
+              item_ns: torch.Tensor | None = None,
+              report: dict | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
     [T, NSTATE, PIX] float32.
@@ -260,6 +261,8 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     the redesign's extra work; ``unit_ns`` [U, 2] and ``item_ns`` [I, 2]
     (optional int64) receive the %globaltimer stamps at the start and end
     of the first pass's units 0..U-1 and of the work items 0..I-1.
+    ``report`` (optional dict) receives what the launch allocated and
+    launched (``_fwd_launch``); ``forward_layout`` reads its work lists.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -275,17 +278,20 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         (feats_sorted.data_ptr(), pair_rank.data_ptr(),
          tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x),
         num_tiles, forward_work(num_tiles, pair_rank.shape[0], segments),
-        records, segments, n_pass_a, unit_ns, item_ns, dev, "blend_fwd")
+        records, segments, n_pass_a, unit_ns, item_ns, report, dev,
+        "blend_fwd")
     blend_fwd.launches += 1
     return state
 
 
 def _fwd_launch(launcher, head, num_tiles, work, records, segments,
-                n_pass_a, unit_ns, item_ns, dev, name):
+                n_pass_a, unit_ns, item_ns, report, dev, name):
     """Checks of a forward kernel's optional inputs, its output and
     scratch buffers (the work layout, the first pass's products and
     candidate bits, the partial slots), the launch; returns the state
-    rows or raises."""
+    rows or raises.  ``report`` (optional dict) receives the grids
+    (``grid_items``, ``grid_units``), each scratch buffer's bytes
+    (``scratch_bytes``) and the layout buffer itself."""
     ckpt = ckpt_off = None
     if records is not None:
         _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
@@ -319,7 +325,25 @@ def _fwd_launch(launcher, head, num_tiles, work, records, segments,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + _lib().blend_fwd_error_string(err).decode())
+    if report is not None:
+        report.update(
+            num_tiles=num_tiles, grid_items=n_items, grid_units=n_units,
+            layout=layout,
+            scratch_bytes={k: t.numel() * t.element_size() for k, t in (
+                ("layout", layout), ("first_pass", cand),
+                ("partials", part))})
     return state
+
+
+def forward_layout(report: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The work a forward launch listed on the card, read back from the
+    layout buffer in its ``report`` (after the launch has run): the work
+    items [I, 2] (tile, segment) and the first pass's units [U, 2] (tile,
+    k: pairs [k UNIT, (k + 1) UNIT)), in launch order (the CTA index)."""
+    lay, t = report["layout"], report["num_tiles"]
+    n_items, n_units = (int(v) for v in lay[[t, 3 * t + 1]].tolist())
+    items = lay[3 * t + 2:].view(-1, 2)
+    return items[:n_items], items[report["grid_items"]:][:n_units]
 
 
 blend_fwd.launches = 0
@@ -375,15 +399,20 @@ AUX = (1e-4, 1e-5)
 
 def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     """State rows ``sk`` of a blend against a reference's ``sp``.  A pixel
-    'flips' when its termination or its median-depth choice (median rows)
-    differs: one side terminated and the other did not (done row), or
-    both terminated at different pairs because one blended the pair the
-    other tripped on (their blended counts differ by one and the side
-    that blended it ends with T within 1e-5 of T_CUTOFF, relative).
+    'flips' when its termination or its median-depth choice differs, in
+    one of three kinds, each pixel in the first that fits:
+      * ``done``: one side terminated and the other did not (done row);
+      * ``median``: the median rows differ (the T > 0.5 choice);
+      * ``trip_moved``: both terminated at different pairs because one
+        blended the pair the other tripped on (their blended counts differ
+        by one and the side that blended it ends with T within 1e-5 of
+        T_CUTOFF, relative).
     Every other pixel must agree within the row tolerances (TIGHT, AUX)
-    and count the same evaluated and blended pairs (rows 14 and 15).
-    Returns the per-row max errors outside the flips, the flipped and the
-    outside-tolerance pixel counts and the flip mask [T, PIX]."""
+    and count the same evaluated and blended pairs (rows 14 and 15); those
+    that do not are ``other``.  Returns the per-row max errors outside the
+    flips, the flipped and the outside-tolerance pixel counts, the count
+    of each kind (``flips``), the flip mask [T, PIX] and each kind's mask
+    (``masks``, ``other`` included)."""
     tol = {ROW_T: TIGHT, ROW_D1: AUX, ROW_D2: AUX, ROW_DEPTH: AUX,
            ROW_DISTORTION: AUX, ROW_MED_D: AUX, ROW_MED_W: AUX}
     for sl, t in ((ROW_COLOR, TIGHT), (ROW_NORMAL, AUX)):
@@ -393,13 +422,14 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
         rtol, atol = tol[r]
         return (sk[:, r] - sp[:, r]).abs() <= atol + rtol * sp[:, r].abs()
 
+    done = sk[:, ROW_DONE] != sp[:, ROW_DONE]
+    median = ~done & ~(close(ROW_MED_D) & close(ROW_MED_W))
     extra = sk[:, ROW_N_BLEND] - sp[:, ROW_N_BLEND]
     t_more = torch.where(extra > 0, sk[:, ROW_T], sp[:, ROW_T])
-    trip_moved = (sk[:, ROW_DONE] == 1.0) & (sp[:, ROW_DONE] == 1.0) \
-        & (extra.abs() == 1.0) \
+    trip_moved = ~done & ~median & (sk[:, ROW_DONE] == 1.0) \
+        & (sp[:, ROW_DONE] == 1.0) & (extra.abs() == 1.0) \
         & ((t_more - T_CUTOFF).abs() <= 1e-5 * T_CUTOFF)
-    flip = (sk[:, ROW_DONE] != sp[:, ROW_DONE]) | trip_moved \
-        | ~close(ROW_MED_D) | ~close(ROW_MED_W)
+    flip = done | median | trip_moved
     keep = ~flip
     row_err = {r: float((sk[:, r] - sp[:, r]).abs()[keep].max())
                if bool(keep.any()) else 0.0 for r in sorted(tol)}
@@ -409,9 +439,14 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     for r in (ROW_N_EVAL, ROW_N_BLEND):
         bad |= sk[:, r] != sp[:, r]
     bad &= keep
+    masks = {"done": done, "median": median, "trip_moved": trip_moved,
+             "other": bad}
     return {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
             "pixels": flip.numel(), "bad_outside_flips": int(bad.sum()),
-            "max_abs_err": max(row_err.values()), "flip_mask": flip}
+            "flips": {k: int(masks[k].sum())
+                      for k in ("done", "median", "trip_moved")},
+            "max_abs_err": max(row_err.values()), "flip_mask": flip,
+            "masks": masks}
 
 
 def blend_fwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,

@@ -122,11 +122,11 @@ def _check_dense(gdata, counts, grid_x):
 
 def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
                     chunk: int = 64, records: torch.Tensor | None = None,
-                    segments: Segments | None = None,
-                    max_pairs: int | None = None,
+                    segments: Segments | None = None, *, max_pairs: int,
                     n_pass_a: torch.Tensor | None = None,
                     unit_ns: torch.Tensor | None = None,
-                    item_ns: torch.Tensor | None = None) -> torch.Tensor:
+                    item_ns: torch.Tensor | None = None,
+                    report: dict | None = None) -> torch.Tensor:
     """Blend every tile's slab: gdata [T, cap, NFEAT] float32, counts [T]
     int32 (each at most cap) -> state rows [T, NSTATE, PIX] float32.
 
@@ -136,23 +136,22 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     ``blend_dense_plain`` and ``records`` and ``segments`` are left as
     they are; on CUDA tensors it launches K3 (K1's two passes) or raises.
     The work is sized from ``max_pairs``, a bound on counts.sum() known on
-    the host (the binning's pair count; default T * cap, which sizes the
-    grids and buffers for every slab full), and nothing is read back.
-    ``n_pass_a``, ``unit_ns`` and ``item_ns`` as for ``blend_fwd``."""
+    the host (the binning's pair count, ``binning.pair_rank.shape[0]``),
+    and nothing is read back.  ``n_pass_a``, ``unit_ns``, ``item_ns`` and
+    ``report`` as for ``blend_fwd``."""
     if gdata.device.type == "cpu":
         return blend_dense_plain(gdata, counts, grid_x, chunk=chunk)
     dev = gdata.device
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_fwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
-    n_pairs = num_tiles * cap if max_pairs is None else max_pairs
     lib = _lib()
     state = _fwd_launch(
         lib.blend_dense_fwd_launch,
         (gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x),
-        num_tiles, forward_work(num_tiles, n_pairs, segments,
+        num_tiles, forward_work(num_tiles, max_pairs, segments,
                                 max_segs=-(-cap // SEG)),
-        records, segments, n_pass_a, unit_ns, item_ns, dev,
+        records, segments, n_pass_a, unit_ns, item_ns, report, dev,
         "blend_dense_fwd")
     blend_dense_fwd.launches += 1
     return state
@@ -212,10 +211,11 @@ blend_dense_bwd.launches = 0
 class BlendTilesDense(torch.autograd.Function):
     """State rows of the dense blend, differentiable in gdata: forward K3
     in training mode, backward K4.  ``build_gdata``'s gather stays
-    outside, so autograd sums the per-pair gradients per Gaussian."""
+    outside, so autograd sums the per-pair gradients per Gaussian.
+    ``max_pairs`` as for ``blend_dense_fwd``."""
 
     @staticmethod
-    def forward(ctx, gdata, counts, grid_x, chunk=64, max_pairs=None):
+    def forward(ctx, gdata, counts, grid_x, max_pairs, chunk=64):
         records = torch.empty((gdata.shape[0], NREC, PIX), dtype=torch.int32,
                               device=gdata.device)
         segments = segment_layout(counts)

@@ -187,8 +187,8 @@ def blend_tiles(Tmat, center, normal, colors, opacity, binning: Binning,
     else:
         gdata, counts = build_gdata(feats, binning, cfg.tile_cap)
         n_pairs = binning.pair_rank.shape[0]   # sizes K3's work, no read
-        state = BlendTilesDense.apply(gdata, counts, grid_x, cfg.chunk,
-                                      n_pairs) if train \
+        state = BlendTilesDense.apply(gdata, counts, grid_x, n_pairs,
+                                      cfg.chunk) if train \
             else blend_dense_fwd(gdata, counts, grid_x, cfg.chunk,
                                  max_pairs=n_pairs)
     tile_color, tile_allmap = state_to_maps(state)

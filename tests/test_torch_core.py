@@ -19,6 +19,11 @@ from d2dgs_torch.utils import general as tgeneral
 from d2dgs_torch.utils import quaternion as tquat
 from d2dgs_torch.utils import sh as tsh
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

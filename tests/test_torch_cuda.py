@@ -145,7 +145,8 @@ def test_blend_wrapper_refuses_bad_inputs(cuda):
 
 
 def _dense_args(cam, means, scales, quats, opac, colors, tile_cap):
-    """The dense route's inputs (K3/K4) for one view."""
+    """The dense route's inputs (K3/K4) for one view, and the binning's
+    pair count, which sizes K3's work as the render path sizes it."""
     from d2dgs_torch.ops.cuda.blend_dense import build_gdata
     gx, gy = tile_grid(cam.H, cam.W)
     prep = preprocess(means, scales, quats, cam)
@@ -153,7 +154,7 @@ def _dense_args(cam, means, scales, quats, opac, colors, tile_cap):
     b = bin_gaussians(prep, gx, gy, RasterConfig(), opacity=op)
     feats = pack_features(prep.T, prep.center, prep.normal, colors, op)
     gdata, counts = build_gdata(feats, b, tile_cap)
-    return gdata, counts, gx
+    return gdata, counts, gx, b.pair_rank.shape[0]
 
 
 @pytest.mark.cuda
@@ -170,9 +171,9 @@ def test_dense_kernels_match_plain_on_gpu(cuda, opaque, tile_cap):
                                                   blend_dense_plain,
                                                   blend_dense_plain_vjp)
     cam, arrs = _scene(opaque, cuda)
-    gdata, counts, gx = _dense_args(cam, *arrs, tile_cap)
+    gdata, counts, gx, n_pairs = _dense_args(cam, *arrs, tile_cap)
     before = blend_dense_fwd.launches
-    sk = blend_dense_fwd(gdata, counts, gx)
+    sk = blend_dense_fwd(gdata, counts, gx, max_pairs=n_pairs)
     torch.cuda.synchronize()
     assert blend_dense_fwd.launches == before + 1
     sp = blend_dense_plain(gdata, counts, gx)
@@ -188,7 +189,7 @@ def test_dense_kernels_match_plain_on_gpu(cuda, opaque, tile_cap):
 
     f = gdata.clone().requires_grad_()
     before = (blend_dense_fwd.launches, blend_dense_bwd.launches)
-    state = BlendTilesDense.apply(f, counts, gx)
+    state = BlendTilesDense.apply(f, counts, gx, n_pairs)
     g = torch.randn(state.shape, generator=torch.Generator().manual_seed(3))
     g = g.to(cuda)
     d_kernel, = torch.autograd.grad(state, f, g)
@@ -202,9 +203,9 @@ def test_dense_kernels_match_plain_on_gpu(cuda, opaque, tile_cap):
     past = torch.arange(tile_cap, device=cuda)[None, :] >= counts[:, None]
     assert not bool(d_kernel[past].any())
     with pytest.raises(ValueError, match="counts"):
-        blend_dense_fwd(gdata, counts[:-1], gx)
+        blend_dense_fwd(gdata, counts[:-1], gx, max_pairs=n_pairs)
     with pytest.raises(TypeError, match="gdata"):
-        blend_dense_fwd(gdata.double(), counts, gx)
+        blend_dense_fwd(gdata.double(), counts, gx, max_pairs=n_pairs)
 
 
 @pytest.mark.cuda
@@ -222,7 +223,7 @@ def test_segmented_backward_on_packed_scene(cuda, route):
                                                   blend_dense_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import CKPT_ROWS, PIX, blend_walk
     cam, arrs = _scene(False, cuda, packed=True)
-    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    gdata, counts, gx, n_pairs = _dense_args(cam, *arrs, 1024)
     fs, rank, start, count, _ = _kernel_args(cam, *arrs)
     num_tiles = counts.shape[0]
     seg = segment_layout(counts)
@@ -234,8 +235,8 @@ def test_segmented_backward_on_packed_scene(cuda, route):
         serve = blend_fwd(*args)
     else:
         state = blend_dense_fwd(gdata, counts, gx, records=records,
-                                segments=seg)
-        serve = blend_dense_fwd(gdata, counts, gx)
+                                segments=seg, max_pairs=n_pairs)
+        serve = blend_dense_fwd(gdata, counts, gx, max_pairs=n_pairs)
     torch.cuda.synchronize()
     torch.testing.assert_close(state, serve, rtol=0, atol=0)
     cap = gdata.shape[1]
@@ -267,8 +268,8 @@ def test_segmented_backward_on_packed_scene(cuda, route):
     else:
         f = gdata.clone().requires_grad_()
         before = blend_dense_bwd.launches
-        d_kernel, = torch.autograd.grad(BlendTilesDense.apply(f, counts, gx),
-                                        f, g)
+        d_kernel, = torch.autograd.grad(
+            BlendTilesDense.apply(f, counts, gx, n_pairs), f, g)
         torch.cuda.synchronize()
         assert blend_dense_bwd.launches == before + 1
         d_plain = blend_dense_plain_vjp(gdata, counts, gx, g)
@@ -288,7 +289,7 @@ def test_kernels_refuse_other_segment_length(cuda):
                                                   blend_dense_fwd)
     from d2dgs_torch.ops.tiled_raster import PIX
     cam, arrs = _scene(False, cuda, packed=True)
-    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    gdata, counts, gx, n_pairs = _dense_args(cam, *arrs, 1024)
     fs, rank, start, count, _ = _kernel_args(cam, *arrs)
     records = torch.empty((counts.shape[0], NREC, PIX), dtype=torch.int32,
                           device=cuda)
@@ -304,7 +305,8 @@ def test_kernels_refuse_other_segment_length(cuda):
         with pytest.raises(ValueError, match=f"{seg}-pair segments"):
             blend_bwd(fs, rank, start, count, gx, state, records, g, lay)
         with pytest.raises(ValueError, match=f"{seg}-pair segments"):
-            blend_dense_fwd(gdata, counts, gx, records=records, segments=lay)
+            blend_dense_fwd(gdata, counts, gx, records=records, segments=lay,
+                            max_pairs=n_pairs)
         with pytest.raises(ValueError, match=f"{seg}-pair segments"):
             blend_dense_bwd(gdata, counts, gx, state, records, g, lay)
     assert (blend_fwd.launches, blend_bwd.launches, blend_dense_fwd.launches,
@@ -320,23 +322,26 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
     compare_states judges (no flipped pixel at 48x64); training mode
     leaves the state as serving computes it and writes the records and
     checkpoints of the plain emulation of its algorithm; the first pass
-    counts its evaluations and both passes time their units and items."""
+    counts its evaluations and both passes time their units and items;
+    the work lists the layout kernel builds on the card are the
+    backward's items and ceil(count / UNIT) units per tile."""
     from d2dgs_torch.ops.cuda.blend import (NREC, UNIT,
                                             blend_fwd_segments_plain,
-                                            compare_states,
+                                            compare_states, forward_layout,
                                             pack_checkpoints, segment_layout)
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_fwd,
                                                   blend_dense_plain)
     from d2dgs_torch.ops.tiled_raster import CKPT_ROWS, PIX
     cam, arrs = _scene(kind == "opaque", cuda, packed=kind == "packed")
-    gdata, counts, gx = _dense_args(cam, *arrs, 1024)
+    gdata, counts, gx, n_pairs = _dense_args(cam, *arrs, 1024)
     fs, rank, start, count, _ = _kernel_args(cam, *arrs)
     if route == "wq":
         run = lambda **k: blend_fwd(fs, rank, start, count, gx, **k)
         plain = blend_tiles_plain(fs, rank, start, count, gx)
         launches = lambda: blend_fwd.launches
     else:
-        run = lambda **k: blend_dense_fwd(gdata, counts, gx, **k)
+        run = lambda **k: blend_dense_fwd(gdata, counts, gx,
+                                          max_pairs=n_pairs, **k)
         plain = blend_dense_plain(gdata, counts, gx)
         launches = lambda: blend_dense_fwd.launches
     seg = segment_layout(counts)
@@ -348,10 +353,20 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
                           device=cuda)
     n_pass_a = torch.zeros(1, dtype=torch.int64, device=cuda)
     before = launches()
-    serve = run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a)
-    state = run(records=records, segments=seg)
+    reports = ({}, {})
+    serve = run(unit_ns=unit_ns, item_ns=item_ns, n_pass_a=n_pass_a,
+                report=reports[0])
+    state = run(records=records, segments=seg, report=reports[1])
     torch.cuda.synchronize()
     assert launches() == before + 2
+    for rep in reports:
+        items, units = forward_layout(rep)
+        assert torch.equal(items, seg.items)
+        assert torch.equal(torch.bincount(units[:, 0].long(),
+                                          minlength=counts.shape[0]),
+                           -(-counts.long() // UNIT))
+        assert rep["grid_items"] >= items.shape[0]
+        assert rep["grid_units"] >= units.shape[0]
     for st, mode in ((serve, "serving"), (state, "training")):
         res = compare_states(st, plain)
         assert res["flipped"] == 0 and res["bad_outside_flips"] == 0, (

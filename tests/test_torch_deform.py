@@ -15,6 +15,11 @@ from d2dgs_torch.models import deform_mlp as tmlp
 from d2dgs_torch.models import nodes as tnodes
 from d2dgs_torch.models.deform import DeformConfig, deform_gaussians
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-7)
 # head init std -> ~1e-2 (JAX init: 1e-5, scaling 1e-8, local_rotation 1e-4)
 HEAD_SCALE = {"warp": 1e3, "scaling": 1e6, "rotation": 1e3,

@@ -36,6 +36,11 @@ from d2dgs_torch.ops.cuda.blend_dense import (BlendTilesDense,
 from d2dgs_torch.ops.tiled_raster import (NFEAT, blend_tiles,
                                           rasterize_tiled)
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 H, W = 48, 64
 IMG = dict(rtol=1e-5, atol=1e-5)
 AUX = dict(rtol=1e-4, atol=1e-5)
@@ -115,7 +120,8 @@ def test_dense_plain_matches_jax_k3(kind):
         assert out[:, 1].sum() > 0, "no early termination"
     # the CPU wrapper is the plain version and launches nothing
     before = blend_dense_fwd.launches
-    wrapped = blend_dense_fwd(T(gdata), T(counts), gx)
+    wrapped = blend_dense_fwd(T(gdata), T(counts), gx,
+                              max_pairs=jb.pair_rank.shape[0])
     assert blend_dense_fwd.launches == before
     np.testing.assert_array_equal(wrapped.numpy(), out)
 
@@ -146,7 +152,7 @@ def test_dense_plain_vjp_matches_jax_k4(kind):
     # autograd function pairs the plain forward with it
     before = blend_dense_bwd.launches
     f = T(gdata).requires_grad_()
-    state = BlendTilesDense.apply(f, T(counts), gx)
+    state = BlendTilesDense.apply(f, T(counts), gx, jb.pair_rank.shape[0])
     d_fn, = torch.autograd.grad(state, f, T(g))
     assert blend_dense_bwd.launches == before
     torch.testing.assert_close(d_fn, T(out), rtol=0, atol=0)

@@ -31,6 +31,11 @@ from d2dgs_torch.ops.dense_raster import rasterize_dense
 from d2dgs_torch.ops.projection import preprocess
 from d2dgs_torch.render.renderer import render
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 GRAD = dict(rtol=2e-4, atol=2e-5)
 
 

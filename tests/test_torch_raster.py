@@ -32,6 +32,11 @@ from d2dgs_torch.ops.tiled_raster import (ROW_N_BLEND, ROW_N_EVAL,
                                           blend_tiles_plain, pack_features,
                                           rasterize_tiled)
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 IMG = dict(rtol=1e-5, atol=1e-5)      # image rows (colour, T)
 AUX = dict(rtol=1e-4, atol=1e-5)      # allmap rows
 CFG = RasterConfig()

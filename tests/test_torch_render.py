@@ -27,6 +27,11 @@ from d2dgs_torch.models.deform_mlp import MLPConfig
 from d2dgs_torch.models.nodes import NodeConfig
 from d2dgs_torch.render.renderer import render
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 AUX = dict(rtol=1e-4, atol=1e-5)
 CAM = dict(azimuth=0.3, elevation=0.2, radius=3.0, fov=0.8, H=32, W=32,
            time=0.4)

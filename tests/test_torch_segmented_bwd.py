@@ -35,6 +35,11 @@ from d2dgs_torch.ops.tiled_raster import (CKPT_ROWS, NFEAT, NSTATE, PIX,
                                           ROW_N_BLEND, blend_tiles_plain,
                                           blend_walk, pack_features)
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 H, W = 48, 64
 GRAD = dict(rtol=2e-4, atol=2e-5)
 

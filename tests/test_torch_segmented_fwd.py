@@ -44,6 +44,11 @@ from d2dgs_torch.ops.tiled_raster import (NFEAT, NSTATE, PIX, ROW_DONE,
                                           ROW_T, blend_tiles_plain,
                                           blend_walk, pack_features)
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 H, W = 48, 64
 IMG = dict(rtol=1e-5, atol=1e-5)
 AUX = dict(rtol=1e-4, atol=1e-5)
@@ -101,7 +106,8 @@ def _judge(out, ref, what):
     tolerances, the work counters exact."""
     res = compare_states(out, ref)
     assert res["flipped"] == 0 and res["bad_outside_flips"] == 0, (
-        what, {k: v for k, v in res.items() if k != "flip_mask"})
+        what, {k: v for k, v in res.items()
+               if k not in ("flip_mask", "masks")})
 
 
 @pytest.mark.parametrize("seg", [8, 64, 256])
@@ -341,14 +347,23 @@ def test_training_mode_feeds_the_segmented_backward(views, kind, seg):
 
 def _judged(changes):
     """compare_states on two states that differ at one pixel: ``changes``
-    maps a row to its (kernel, reference) values there."""
+    maps a row to its (kernel, reference) values there.  Returns the
+    flipped and outside-tolerance counts and the kinds whose mask holds
+    that pixel (and no other)."""
     ref = torch.zeros((2, NSTATE, PIX))
     ref[:, ROW_T] = 0.5
     out = ref.clone()
     for r, (k, p) in changes.items():
         out[0, r, 7], ref[0, r, 7] = k, p
     res = compare_states(out, ref)
-    return res["flipped"], res["bad_outside_flips"]
+    kinds = []
+    for kind, mask in res["masks"].items():
+        assert int(mask.sum()) == int(bool(mask[0, 7]))
+        if bool(mask[0, 7]):
+            kinds.append(kind)
+    assert res["flips"] == {k: int(k in kinds)
+                            for k in ("done", "median", "trip_moved")}
+    return res["flipped"], res["bad_outside_flips"], kinds
 
 
 def test_compare_states_sorts_threshold_flips():
@@ -357,13 +372,19 @@ def test_compare_states_sorts_threshold_flips():
     the side that blended the extra pair ends within 1e-5 of T_CUTOFF
     (the case seen at full width, tools/blend_fwd_flips.py); the same
     counts with T far from the cutoff, or differing counts of a pixel
-    that did not terminate, stay outside the tolerance."""
+    that did not terminate, stay outside the tolerance.  Each pixel is
+    counted in one kind: a termination that also moves the median is a
+    done flip."""
     trip = {ROW_DONE: (1.0, 1.0), ROW_N_EVAL: (129.0, 130.0),
             ROW_N_BLEND: (34.0, 35.0)}
-    assert _judged({}) == (0, 0)
-    assert _judged({ROW_DONE: (1.0, 0.0)}) == (1, 0)
-    assert _judged({ROW_MED_D: (1.5, 2.5)}) == (1, 0)
-    assert _judged({**trip, ROW_T: (1.1107232e-4, 1.0000001e-4)}) == (1, 0)
-    assert _judged({**trip, ROW_T: (1.1107232e-4, 2e-4)}) == (0, 1)
+    assert _judged({}) == (0, 0, [])
+    assert _judged({ROW_DONE: (1.0, 0.0)}) == (1, 0, ["done"])
+    assert _judged({ROW_DONE: (1.0, 0.0),
+                    ROW_MED_D: (1.5, 2.5)}) == (1, 0, ["done"])
+    assert _judged({ROW_MED_D: (1.5, 2.5)}) == (1, 0, ["median"])
+    assert _judged({**trip, ROW_T: (1.1107232e-4, 1.0000001e-4)}) == (
+        1, 0, ["trip_moved"])
+    assert _judged({**trip, ROW_T: (1.1107232e-4, 2e-4)}) == (0, 1,
+                                                              ["other"])
     assert _judged({ROW_N_EVAL: (129.0, 130.0),
-                    ROW_N_BLEND: (34.0, 35.0)}) == (0, 1)
+                    ROW_N_BLEND: (34.0, 35.0)}) == (0, 1, ["other"])

@@ -45,6 +45,11 @@ from d2dgs_torch.train import trainer as ttrainer
 from d2dgs_torch.train.config import TrainConfig
 from d2dgs_torch.utils import general as tgeneral
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 GRAD = dict(rtol=2e-4, atol=2e-5)
 
 

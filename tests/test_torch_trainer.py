@@ -29,6 +29,11 @@ from d2dgs_torch.utils import general as tgeneral
 from test_torch_train import (CAM, CFG, JCFG, SCHED, STEP, T, _arap_draws,
                               _flat, _jax_state, _leaves, close_normalised)
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 # the dense blend route on both sides: JAX's K3/K4 in interpret mode
 JCFG_D = dataclasses.replace(
     JCFG, raster=dataclasses.replace(JCFG.raster, use_workqueue=False))

@@ -23,6 +23,11 @@ from d2dgs_torch.train.config import TrainConfig
 from test_torch_train import CFG, JCFG, T, _jax_state
 from test_torch_trainer import CFG_D, JCFG_D, _port
 
+# One intra-op thread: the test suite runs its files in parallel worker
+# processes, whose OpenMP threads would contend with one another and make
+# these small tensor ops many times slower.
+torch.set_num_threads(1)
+
 
 def _rich_state():
     """The test_torch_train state with 60 live node Gaussians spread over
@@ -270,17 +275,7 @@ TINY = TrainConfig(
     raster=RasterConfig(tile_cap=256, chunk=64, use_workqueue=False))
 
 
-@pytest.fixture
-def one_thread():
-    """One intra-op thread: the run's tensors are tiny, and a thread pool
-    per test worker oversubscribes the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_trainer_trains_on_cpu(one_thread):
+def test_trainer_trains_on_cpu():
     """Stage 1 of the port's Trainer on a synthetic video, then a few
     main-stage steps: stage-1 PSNR rises, the node Gaussians collapse to
     node_num at the downsampling, and everything stays finite."""

@@ -7,16 +7,17 @@ differs by a few ulp, and a threshold decision taken where T lies within
 those ulps of 1e-4 or 0.5 can go either way.  This script renders the
 phase-3 scene of chip_smoke.py from ``--views`` seeded cameras, times and
 opacity perturbations, holds the kernel's state rows against the plain
-version's and sorts every pixel that differs:
+version's with ``compare_states`` (d2dgs_torch/ops/cuda/blend.py) and
+counts every pixel that differs by its kind there:
   * ``done``: one terminated and the other did not;
   * ``median``: the median depth or weight differs (the T > 0.5 choice);
-  * ``trip``: both terminated, at different pairs (the T < 1e-4 choice
-    taken at another pair: the evaluated and blended counts differ);
-  * ``other``: anything else outside the tolerances of compare_states
-    (colour and T rtol/atol 1e-5, the other rows rtol 1e-4 atol 1e-5,
-    the counts exact): a fault, not a threshold.
-For the first ``trip`` and ``other`` pixels of each view it prints both
-sides' T, done flag and counts.  Run from the repository root:
+  * ``trip_moved``: both terminated, one pair apart, the side that
+    blended the extra pair ending within 1e-5 of the cutoff (the T < 1e-4
+    choice taken at the neighbouring pair);
+  * ``other``: anything else outside the tolerances of compare_states:
+    a fault, not a threshold.
+For the first ``trip_moved`` and ``other`` pixels of each view it prints
+both sides' T, done flag and counts.  Run from the repository root:
 
     python3 tools/blend_fwd_flips.py [--views 24]
 """
@@ -32,32 +33,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-TIGHT = (1e-5, 1e-5)
-AUX = (1e-4, 1e-5)
-
-
-def classify(sk: torch.Tensor, sp: torch.Tensor) -> dict:
-    """Masks [T, PIX] of the four kinds of pixel that differ."""
-    from d2dgs_torch.ops.tiled_raster import (ROW_DONE, ROW_MED_D,
-                                              ROW_MED_W, ROW_N_BLEND,
-                                              ROW_N_EVAL, ROW_T)
-    tight_rows = (ROW_T, 4, 5, 6)
-
-    def close(r):
-        rtol, atol = TIGHT if r in tight_rows else AUX
-        return (sk[:, r] - sp[:, r]).abs() <= atol + rtol * sp[:, r].abs()
-
-    done = sk[:, ROW_DONE] != sp[:, ROW_DONE]
-    median = ~done & ~(close(ROW_MED_D) & close(ROW_MED_W))
-    counts = (sk[:, ROW_N_EVAL] != sp[:, ROW_N_EVAL]) \
-        | (sk[:, ROW_N_BLEND] != sp[:, ROW_N_BLEND])
-    trip = ~done & ~median & (sp[:, ROW_DONE] == 1.0) & counts
-    values = torch.zeros_like(done)
-    for r in range(ROW_MED_D):
-        if r != ROW_DONE:
-            values |= ~close(r)
-    other = ~done & ~median & ~trip & (counts | values)
-    return {"done": done, "median": median, "trip": trip, "other": other}
+KINDS = ("done", "median", "trip_moved", "other")
 
 
 def main() -> int:
@@ -72,7 +48,7 @@ def main() -> int:
     from d2dgs_torch.data.cameras import orbit_camera
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.models.gaussians import apply_deform
-    from d2dgs_torch.ops.cuda.blend import blend_fwd
+    from d2dgs_torch.ops.cuda.blend import blend_fwd, compare_states
     from d2dgs_torch.ops.tiled_raster import (ROW_N_BLEND, ROW_N_EVAL,
                                               ROW_T, blend_tiles_plain)
     from d2dgs_torch.utils.sh import sh_to_rgb
@@ -80,7 +56,7 @@ def main() -> int:
     cfg = RasterConfig()
     gauss, nodes, deform_cfg = cs.full_scene(dev)
     opacity0 = gauss.opacity.clone()
-    totals = {k: 0 for k in ("done", "median", "trip", "other")}
+    totals = {k: 0 for k in KINDS}
     pixels = 0
     with torch.no_grad():
         for v in range(args.views):
@@ -104,14 +80,14 @@ def main() -> int:
             kargs = (fs, b.pair_rank, b.tile_start, b.tile_count, gx)
             sk = blend_fwd(*kargs)
             sp = blend_tiles_plain(*kargs, chunk=cfg.chunk)
-            kinds = classify(sk, sp)
+            kinds = compare_states(sk, sp)["masks"]
             counts = {k: int(m.sum()) for k, m in kinds.items()}
             pixels += sk.shape[0] * sk.shape[2]
             for k, c in counts.items():
                 totals[k] += c
             print(f"view {v} (t={t}): pairs {int(b.num_pairs)}, "
                   + json.dumps(counts), flush=True)
-            for k in ("trip", "other"):
+            for k in ("trip_moved", "other"):
                 for tile, pix in torch.nonzero(kinds[k]).tolist()[:5]:
                     row = lambda s: [float(s[tile, ROW_T, pix]),
                                      float(s[tile, 1, pix]),
