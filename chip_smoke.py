@@ -4,8 +4,9 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
   1. require CUDA, print the card's name and power limit, build the two
-     blend sources from d2dgs_torch/csrc with nvcc (one nvcc per source,
-     started together) and bind their four entry points (K1 and K3 in
+     blend sources from d2dgs_torch/csrc with nvcc and the native mesh
+     library from native/mesh_post.cpp with g++ (one compiler per source,
+     started together) and bind the blends' four entry points (K1 and K3 in
      blend_fwd.cu, K2 and K4 in blend_bwd.cu);
   2. hold the forward kernel (K1: a first pass of one CTA per 64 pairs of
      a tile, then one CTA per 256-pair segment) in serving and in training
@@ -58,7 +59,23 @@ Phases (each one fails the run with a non-zero exit):
      with densification, 99 iterations; checks finite losses, moments and
      parameters, one K3 and one K4 launch per training step and none of
      K1/K2, node_num node Gaussians after the downsampling and a rising
-     stage-1 PSNR, then reports the mean step time of each stage.
+     stage-1 PSNR, then reports the mean step time of each stage;
+  6. the user's entry points at full width: the phase-3 scene rendered
+     (K1) from 8 orbit cameras x 4 times and 4 test views at 800x800 and
+     written as a D-NeRF scene (RGBA PNGs, transforms_{train,test}.json),
+     and as the CLI's own TrainState in a format-2 checkpoint (Adam's
+     moments warmed on training views, colours and opacities perturbed);
+     then, through d2dgs_torch.cli.main: render (the start's test
+     metrics), train --resume for 40 main-stage steps with every loss
+     term and the motion-mask term on (K1/K2), one test and one save
+     iteration, render of the test split, mesh --max_times 1 at voxel
+     0.004, and `python -m d2dgs_torch.cli render --mode time` as a
+     subprocess; checks the files, the results.json keys, a test PSNR
+     no lower than 1 dB under the start's, the PLY against the
+     checkpoint's alive rows, a bitwise checkpoint round trip, a
+     non-empty mesh, the native mesh library loaded, K1 and K2 launched
+     and the dense route not; prints the step and view times, the TSDF
+     grid and the mesh's times and size.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
@@ -1153,6 +1170,257 @@ def phase_5b(dev, card) -> dict:
     return res
 
 
+# phase 6: the command line on a D-NeRF scene written from the phase-3
+# scene; the CLI's own flags at full width, the schedule past the warm-up
+# and the normal/distortion start, so every loss term is on
+CLI_FLAGS = ["--gaussian_capacity", "100000", "--sh_degree", "3",
+             "--gt_alpha_mask_as_dynamic_mask"]
+CLI_SIZE = 800          # the views' height and width
+CLI_MESH = ["--max_times", "1"]     # at the CLI's default voxel, 0.004
+CLI_START = 8001        # the checkpoint's main-stage iteration
+CLI_STEPS = 40          # main-stage steps of `cli train --resume`
+N_TEST = 4
+
+
+def run_cli(argv) -> dict:
+    """``d2dgs_torch.cli.main(argv)`` (what ``python -m d2dgs_torch.cli``
+    calls) in this process; returns the measurements it reports."""
+    from d2dgs_torch import cli
+    report = {}
+    rc = cli.main(list(argv), report=report)
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]} exited {rc}")
+    return report
+
+
+def write_scene(root, gauss, nodes, deform_cfg, dev):
+    """The phase-3 scene rendered through K1 at 800x800 from 8 orbit
+    cameras x 4 times (train) and 4 cameras between them (test), written
+    as a D-NeRF scene: RGBA PNGs (colour un-premultiplied, alpha the
+    render's accumulated alpha) and transforms_{train,test}.json."""
+    from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch.data.cameras import orbit_camera
+    from d2dgs_torch.data.synthetic import video_cameras, write_dnerf_scene
+    from d2dgs_torch.eval.render_sets import render_view
+    train = video_cameras(8, 4, CLI_SIZE, CLI_SIZE, device=dev)
+    test = [orbit_camera(2 * np.pi * (i + 0.5) / N_TEST, 0.3, 4.0, fov=0.9,
+                         H=CLI_SIZE, W=CLI_SIZE, time=(i + 0.5) / N_TEST,
+                         device=dev)
+            for i in range(N_TEST)]
+    bg = torch.zeros(3, device=dev)
+
+    def rgba(cam):
+        out = render_view(cam, gauss, nodes, deform_cfg, RasterConfig(), bg)
+        a = out.alpha
+        rgb = torch.where(a > 0, out.image / torch.clamp_min(a, 1e-6), 0.0)
+        return torch.cat([rgb, a], -1).clamp(0, 1).cpu().numpy()
+    write_dnerf_scene(str(root), {"train": [(c, rgba(c)) for c in train],
+                                  "test": [(c, rgba(c)) for c in test]})
+    return len(train), len(test)
+
+
+def write_checkpoint(path, scene_dir, gauss, nodes, dev):
+    """The phase-3 scene as the CLI's own TrainState (the template
+    ``cli train`` builds from these flags), Adam's moments warmed by a
+    few steps on training views (parameters put back), colours and
+    opacities then perturbed from a seed; saved as a format-2 checkpoint
+    at main-stage iteration CLI_START, after stage 1."""
+    from d2dgs_torch import cli
+    from d2dgs_torch.io.checkpoint import save_train_state
+    from d2dgs_torch.train.trainer import (GAUSS_FIELDS, NODE_FIELDS,
+                                           init_train_state)
+    args = cli._base_parser("train", True).parse_args(
+        ["-s", str(scene_dir), "-m", "unused", *CLI_FLAGS])
+    cfg = cli.config_from_args(args)
+    info = cli._load_scene(args, dev)
+    state = init_train_state(cfg, *cli._init_points(info, cfg, args.seed),
+                             device=dev)
+    with torch.no_grad():
+        for f in GAUSS_FIELDS + ("alive",):
+            getattr(state.gauss, f).copy_(getattr(gauss, f))
+        state.gauss.active_sh_degree = gauss.active_sh_degree
+        for f in NODE_FIELDS + ("alive",):
+            getattr(state.nodes, f).copy_(getattr(nodes, f))
+        for p, q in zip(state.nodes.mlp.parameters(),
+                        nodes.mlp.parameters()):
+            p.copy_(q)
+    scheds = phase4_schedules(cfg, 8)
+    bg = np.zeros(3, np.float32)
+    for i, s in enumerate(info.train_cameras[::8]):
+        gt = torch.as_tensor(s.gt(bg), device=dev)
+        state = warm_moments(state, s.camera, gt, cfg, scheds[2 * i:2 * i + 2])
+    perturb(state.gauss, seed=11)
+    save_train_state(str(path), state, CLI_START, cfg.iterations_node_rendering)
+    return cfg
+
+
+def check_ply_matches(ply_path, ckpt_path, cfg, dev):
+    """The PLY holds the alive rows of the checkpoint beside it."""
+    from d2dgs_torch.io.ply import load_gaussian_ply
+    from d2dgs_torch.train.trainer import GAUSS_FIELDS
+    p = load_gaussian_ply(str(ply_path), capacity=cfg.gaussian_capacity,
+                          sh_degree=cfg.sh_degree, fea_dim=cfg.hyper_dim,
+                          with_motion_mask=True, device=dev)
+    n = int(p.num_alive)
+    with np.load(ckpt_path) as z:
+        alive = z["leaf:.gauss.alive"]
+        if n != int(alive.sum()):
+            raise AssertionError(f"PLY has {n} rows, checkpoint {alive.sum()}"
+                                 f" alive")
+        for f in GAUSS_FIELDS:
+            if not np.array_equal(getattr(p, f).detach().cpu().numpy()[:n],
+                                  z["leaf:.gauss." + f][alive]):
+                raise AssertionError(f"PLY {f} differs from the checkpoint")
+    return n
+
+
+def check_checkpoint_roundtrip(ckpt_path, scene_dir, dev):
+    """A checkpoint read back and written again holds the same arrays."""
+    from d2dgs_torch import cli
+    from d2dgs_torch.io.checkpoint import load_train_state, save_train_state
+    from d2dgs_torch.train.trainer import init_train_state
+    args = cli._base_parser("render", False).parse_args(
+        ["-s", str(scene_dir), "-m", "unused", *CLI_FLAGS])
+    cfg = cli.config_from_args(args)
+    info = cli._load_scene(args, dev)
+    template = init_train_state(cfg, *cli._init_points(info, cfg, 0),
+                                device=dev)
+    state, it, it_node = load_train_state(str(ckpt_path), template)
+    again = Path(str(ckpt_path) + ".again.npz")
+    save_train_state(str(again), state, it, it_node)
+    with np.load(ckpt_path) as a, np.load(again) as b:
+        if a.files != b.files:
+            raise AssertionError("checkpoint keys changed on a round trip")
+        for k in a.files:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"checkpoint {k} changed on a round "
+                                     f"trip")
+    return len(a.files)
+
+
+def phase_6(dev, card) -> dict:
+    """train --resume, render (test and time), mesh through the CLI on a
+    D-NeRF scene of the phase-3 scene, at full width."""
+    import tempfile
+
+    from d2dgs_torch import native
+    t_start = time.time()
+    gauss, nodes, deform_cfg = full_scene(dev)
+    with tempfile.TemporaryDirectory(prefix="d2dgs_phase6_") as tmp:
+        tmp = Path(tmp)
+        scene, model = tmp / "scene", tmp / "model"
+        n_train, n_test = write_scene(scene, gauss, nodes, deform_cfg, dev)
+        start_ckpt = tmp / "start.npz"
+        cfg = write_checkpoint(start_ckpt, scene, gauss, nodes, dev)
+        del gauss, nodes
+        torch.cuda.empty_cache()
+        log(f"[phase 6] D-NeRF scene ({n_train} train, {n_test} test views "
+            f"at {CLI_SIZE}x{CLI_SIZE}) and the start checkpoint written in "
+            f"{time.time() - t_start:.1f} s")
+        common = ["-s", str(scene), "-m", str(model), *CLI_FLAGS]
+        reset_counts()
+        t0 = time.time()
+        run_cli(["render", *common, "--ckpt", str(start_ckpt)])
+        with open(model / "results.json") as fh:
+            before = json.load(fh)
+        # the main stage runs iterations 1 .. --iterations + 1
+        last = CLI_START + CLI_STEPS - 1
+        # each step timed between two device synchronisations
+        step_ms = run_cli(["train", *common, "--resume", str(start_ckpt),
+                           "--iterations", str(last - 1),
+                           "--test_iterations", str(last),
+                           "--save_iterations", str(last), "--log_every",
+                           "10"])["step_ms"]
+        view_ms = run_cli(["render", "-s", str(scene), "-m",
+                           str(model)])["view_ms"]
+        with open(model / "results.json") as fh:
+            after = json.load(fh)
+        meshes = run_cli(["mesh", "-s", str(scene), "-m", str(model),
+                          *CLI_MESH])["meshes"]
+        counts = launch_counts()
+        t1 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "d2dgs_torch.cli", "render", "-s",
+             str(scene), "-m", str(model), "--mode", "time", "--n_frames",
+             "8"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        log(proc.stdout.strip())
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m d2dgs_torch.cli render --mode "
+                                 f"time exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        sub_s = time.time() - t1
+        cli_s = time.time() - t0
+
+        # ---- checks ----
+        files = ["cfg_args.json", "ckpt.npz", "ckpt_best.npz",
+                 "results.json", f"point_cloud/iteration_{last}/"
+                 f"point_cloud.ply", f"training_renders/iter_{last}/"
+                 f"view_00.png", "test/renders/renders/00003.png",
+                 "test/renders/depth/00003.png", "time/video.gif",
+                 "time/00007.png", "mesh/mesh_0000.ply"]
+        missing = [f for f in files if not (model / f).exists()]
+        if missing:
+            raise AssertionError(f"phase 6: missing {missing}")
+        keys = {"psnr", "ssim", "ms_ssim", "lpips_rand"}
+        if set(after) != keys or set(before) != keys:
+            raise AssertionError(f"results.json keys {sorted(after)}")
+        if not after["psnr"] >= before["psnr"] - 1.0:
+            raise AssertionError(f"test PSNR {before['psnr']:.3f} -> "
+                                 f"{after['psnr']:.3f} after training")
+        n_ply = check_ply_matches(
+            model / f"point_cloud/iteration_{last}/point_cloud.ply",
+            model / "ckpt.npz", cfg, dev)
+        n_keys = check_checkpoint_roundtrip(model / "ckpt.npz", scene, dev)
+        if len(meshes) != 1 or meshes[0]["faces"] == 0:
+            raise AssertionError(f"phase 6: empty mesh ({meshes})")
+        if len(step_ms) != CLI_STEPS:
+            raise AssertionError(f"{len(step_ms)} train steps, expected "
+                                 f"{CLI_STEPS}")
+        for k in ("blend_fwd", "blend_bwd"):
+            if counts[k] == 0:
+                raise AssertionError(f"phase 6: {k} not launched")
+        if counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
+            raise AssertionError(f"phase 6 launched the dense route: "
+                                 f"{counts}")
+        if not native.available():
+            raise AssertionError("phase 6: the native mesh library did not "
+                                 "load")
+    res = {"launches": counts, "before": before, "after": after,
+           "step_ms": step_ms, "view_ms": view_ms,
+           "train_step_ms": float(np.mean(step_ms[1:])),
+           "train_step_ms_median": float(np.median(step_ms[1:])),
+           "mesh_verts": meshes[0]["verts"],
+           "mesh_faces": meshes[0]["faces"],
+           "grid": "x".join(map(str, meshes[0]["dims"])),
+           "voxels": meshes[0]["voxels"], "grid_bytes": meshes[0]["bytes"],
+           "integrate_ms": meshes[0]["integrate_ms"],
+           "integrate_views": meshes[0]["views"],
+           "extract_ms": meshes[0]["extract_ms"], "ply_rows": n_ply,
+           "ckpt_arrays": n_keys, "subprocess_s": sub_s, "cli_s": cli_s}
+    log(f"[phase 6] cli train --resume: {CLI_STEPS} main-stage steps, "
+        f"{res['train_step_ms']:.2f} ms per step (mean of steps 2-"
+        f"{CLI_STEPS}, each between two device synchronisations; median "
+        f"{res['train_step_ms_median']:.2f}) ({card})")
+    log(f"[phase 6] cli render: {view_ms:.1f} ms per {CLI_SIZE}x{CLI_SIZE} "
+        f"test view "
+        f"(render, metrics and PNGs); test PSNR {before['psnr']:.3f} -> "
+        f"{after['psnr']:.3f}, SSIM {before['ssim']:.4f} -> "
+        f"{after['ssim']:.4f}, MS-SSIM {before['ms_ssim']:.4f} -> "
+        f"{after['ms_ssim']:.4f}, lpips_rand {before['lpips_rand']:.6f} -> "
+        f"{after['lpips_rand']:.6f}")
+    log(f"[phase 6] cli mesh {' '.join(CLI_MESH)}: grid {res['grid']}, "
+        f"{res['voxels']} voxels, {res['grid_bytes']} bytes; integrate "
+        f"{res['integrate_ms']:.1f} ms ({res['integrate_views']} views), "
+        f"extract {res['extract_ms']:.1f} ms; {res['mesh_verts']} verts, "
+        f"{res['mesh_faces']} faces")
+    log(f"[phase 6] PLY {n_ply} rows = the checkpoint's alive rows; "
+        f"checkpoint of {n_keys} arrays bitwise equal after a round trip; "
+        f"`python -m d2dgs_torch.cli render --mode time` {sub_s:.1f} s; "
+        f"launches in the in-process CLI runs {counts}; phase 6 "
+        f"{time.time() - t_start:.1f} s")
+    return res
+
+
 def check_finite(state, metrics, stage, it):
     """Finite loss, moments and parameters of the stage's three groups."""
     from d2dgs_torch.train.trainer import (gauss_trainable, mlp_trainable,
@@ -1180,6 +1448,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch import native
     from d2dgs_torch.data.cameras import orbit_camera
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.models.gaussians import apply_deform
@@ -1204,14 +1473,20 @@ def main() -> int:
     log(f"[phase 1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc per source at once
+    with ThreadPoolExecutor(3) as pool:      # one compiler per source
+        native_lib = pool.submit(native.build)
         built = list(pool.map(build.build, (SOURCE, SOURCE_BWD)))
+        native_lib = native_lib.result()
     for lib, report in built:
         log(f"[phase 1] built {lib.relative_to(ROOT)}")
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[phase 1] ptxas: {line.strip()}")
-    log(f"[phase 1] both sources built in {time.time() - t0:.1f} s")
+    if not native.available():
+        raise AssertionError("the native mesh library did not load")
+    log(f"[phase 1] both sources and the native mesh library "
+        f"({native_lib.relative_to(ROOT)}, g++ from native/mesh_post.cpp) "
+        f"built in {time.time() - t0:.1f} s")
     blend_lib._lib()        # binds K1's and K3's entry points, or raises
     blend_lib._lib_bwd()    # K2's and K4's
     log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
@@ -1492,10 +1767,15 @@ def main() -> int:
 
     # ---- phase 5b: the Trainer at full width on the dense route ----
     res5b = phase_5b(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the command line, train -> render -> mesh ----
+    res6 = phase_6(dev, card)
     paths = {"serve": serve_launches, "train": train_launches,
-             "trainer": res5b["launches"]}
+             "trainer": res5b["launches"], "cli": res6["launches"]}
     needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
-              "trainer": ("blend_dense_fwd", "blend_dense_bwd")}
+              "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
+              "cli": ("blend_fwd", "blend_bwd")}
     for path, names in needed.items():
         for k in names:
             if paths[path][k] == 0:
@@ -1509,7 +1789,7 @@ def main() -> int:
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
         "launches": serve_launches["blend_fwd"]
-        + train_launches["blend_fwd"],
+        + train_launches["blend_fwd"] + res6["launches"]["blend_fwd"],
         "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], **flip_fields(fwd_checks),
@@ -1519,11 +1799,13 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound1["bound_ms"],
         "bound_by": bound1["bound_by"], "library_ms": None,
         **fwd_fields(k1_items),
-        "render_ms": render_ms, "stages_ms": stages}, {
+        "render_ms": render_ms, "stages_ms": stages,
+        "cli_view_ms": res6["view_ms"]}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
-        "launches": train_launches["blend_bwd"],
+        "launches": train_launches["blend_bwd"]
+        + res6["launches"]["blend_bwd"],
         "launches_by_path": by_path("blend_bwd"),
         "max_abs_err": res_k2["max_abs_err"],
         "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
@@ -1537,7 +1819,7 @@ def main() -> int:
         "checkpoint_bytes": seg_t.ckpt.numel() * 4,
         "walk_histogram": hist_t,
         "step_ms": step_ms, "train_stages_ms": train_stages,
-        "l1": l1s}, {
+        "l1": l1s, "cli_step_ms": res6["train_step_ms"]}, {
         "name": "blend_dense_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:411",

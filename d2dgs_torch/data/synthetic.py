@@ -153,3 +153,29 @@ def single_facing_gaussian(cam: Camera, depth: float = 4.0,
                                     device=cam.device)
     return (f32(center[None]), f32([[scale, scale]]), f32(q[None]),
             f32([opacity]), f32([[0.2, 0.5, 0.9]]))
+
+
+def write_dnerf_scene(root: str, splits: dict) -> None:
+    """Write a D-NeRF-format scene that ``data/dnerf.load_scene`` reads:
+    ``splits`` maps "train"/"test" to lists of (Camera, [H,W,4] RGBA in
+    [0,1]); each frame becomes ``<split>/r_<k>.png`` with its camera in
+    ``transforms_<split>.json`` (the Blender c2w, OpenGL axes)."""
+    import json
+    import os
+
+    from PIL import Image
+    for split, frames in splits.items():
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        entries = []
+        for k, (cam, rgba) in enumerate(frames):
+            c2w = np.linalg.inv(cam.w2c.cpu().numpy().astype(np.float64))
+            c2w[:3, 1:3] *= -1                   # OpenCV -> OpenGL axes
+            Image.fromarray((np.clip(rgba, 0, 1) * 255).round().astype(
+                np.uint8)).save(os.path.join(root, split, f"r_{k}.png"))
+            entries.append({"file_path": f"./{split}/r_{k}",
+                            "time": float(cam.time),
+                            "transform_matrix": c2w.tolist()})
+        cam = frames[0][0]
+        fovx = 2 * np.arctan(cam.W / (2 * float(cam.fx)))
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": float(fovx), "frames": entries}, fh)

@@ -81,8 +81,9 @@ class TrainConfig:
     lambda_node_arap: float = 1e-2
     no_arap_loss: bool = False
 
-    # motion-mask loss (train_gui.py:363-370, 509-515) and optical-flow
-    # loss (train_gui.py:318-361): configured here, not ported yet
+    # motion-mask loss (train_gui.py:363-370, 509-515; needs the views'
+    # gt alpha masks) and optical-flow loss (train_gui.py:318-361; not
+    # ported yet)
     gt_alpha_mask_as_dynamic_mask: bool = False
     no_motion_mask_loss: bool = False
     lambda_motion_mask_landmarks: tuple = (5e-1, 1e-2, 0.0)

@@ -38,9 +38,8 @@ from ..utils.general import (farthest_point_sample, get_expon_lr_func,
 from .config import TrainConfig
 from .optim import AdamState, adam_init, adam_update
 
-UNPORTED_LOSSES = ("the motion-mask and optical-flow losses need the 3DGS "
-                   "flow rasterizer and alpha masks, which are not ported yet "
-                   "(ROADMAP.md)")
+UNPORTED_LOSSES = ("the optical-flow loss needs the 3DGS flow rasterizer, "
+                   "which is not ported yet (ROADMAP.md)")
 
 GAUSS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                 "rotation", "opacity", "feature")
@@ -139,6 +138,37 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
         ngauss_stats=D.init_stats(cfg.node_gauss_capacity, dev))
 
 
+def _detached(g: GaussianParams) -> GaussianParams:
+    """The Gaussians' values as a module whose parameters take no
+    gradient."""
+    d = GaussianParams(
+        **{k: getattr(g, k).detach() for k in GAUSS_FIELDS}, alive=g.alive,
+        active_sh_degree=g.active_sh_degree,
+        with_motion_mask=g.with_motion_mask,
+        isotropic_shared_scale=g.isotropic_shared_scale)
+    return d.requires_grad_(False)
+
+
+def motion_mask_loss(gauss: GaussianParams, cam: Camera,
+                     gt_alpha: torch.Tensor, bg: torch.Tensor,
+                     cfg: TrainConfig, d: dict | None = None):
+    """Motion-mask supervision (train_gui.py:363-370 / 509-515, render_motion
+    at gaussian_renderer/__init__.py:103-107): a render with the override
+    colours [mask, 0, 1 - mask] on detached geometry (and detached
+    deformation ``d``), L1 of channel 0 against the gt alpha mask.  Its
+    gradient reaches only the motion-mask logits."""
+    mm = gauss.motion_mask
+    override = torch.cat([mm, torch.zeros_like(mm), 1.0 - mm], dim=-1)
+    kw = {}
+    if d is not None:
+        for k in ("d_xyz", "d_rotation", "d_scaling"):
+            if d.get(k) is not None:
+                kw[k] = d[k].detach()
+    out = render(cam, _detached(gauss), bg, override_color=override,
+                 cfg=cfg.raster, **kw)
+    return l1(out.image[..., 0], gt_alpha[..., 0])
+
+
 def photometric_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
                      gt: torch.Tensor, probe, cfg: TrainConfig, sched: dict,
                      bg: torch.Tensor):
@@ -200,9 +230,9 @@ def node_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
     iter < node_warm_up; the warp is detached), reg_on (0/1), deform_lr,
     xyz_lr, time_interval (and optionally step).  The regularizers' random
     numbers are the ``*_draws`` arguments, or drawn from
-    ``state.generator``.  Returns (state, metrics)."""
-    if motion_loss:
-        raise NotImplementedError(UNPORTED_LOSSES)
+    ``state.generator``.  With ``motion_loss`` the motion-mask term
+    (weight ``sched["reg_on"]``) pulls the node Gaussians' motion-mask
+    logits towards ``gt_alpha``.  Returns (state, metrics)."""
     ng, nodes = state.ngauss, state.nodes
     dev = ng.xyz.device
     bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
@@ -229,6 +259,10 @@ def node_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
     ll1 = l1(out.image, gt)
     loss = ((1.0 - cfg.lambda_dssim) * ll1
             + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
+    if motion_loss:
+        # stage-1 motion-mask loss, weight 1 (train_gui.py:509-515)
+        loss = loss + sched["reg_on"] * motion_mask_loss(
+            ng, cam, gt_alpha, bg, cfg, d={"d_xyz": d_xyz})
     reg = (cfg.lambda_elastic * R.elastic_loss(
                nodes, cfg.node_cfg, elastic_draws, t=cam.time,
                delta_t=sched["time_interval"])
@@ -259,10 +293,11 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                     flow_loss: bool = False,
                     arap_draws: R.ArapDraws | None = None):
     """sched: warm (0/1: iter < warm_up), lambda_normal, lambda_dist,
-    lambda_arap, deform_lr, xyz_lr (and optionally step).  The ARAP
-    term's random numbers are ``arap_draws``, or drawn from
-    ``state.generator``.  Returns (state, metrics)."""
-    if motion_loss or flow_loss:
+    lambda_arap, deform_lr, xyz_lr (and optionally step; lambda_motion
+    with ``motion_loss``).  The ARAP term's random numbers are
+    ``arap_draws``, or drawn from ``state.generator``.  Returns (state,
+    metrics)."""
+    if flow_loss:
         raise NotImplementedError(UNPORTED_LOSSES)
     dev = state.gauss.xyz.device
     bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
@@ -282,6 +317,18 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                                       state.nodes.nodes.shape[0])
         loss = loss + (1.0 - sched["warm"]) * sched["lambda_arap"] * \
             R.arap_loss(state.nodes, cfg.node_cfg, arap_draws)
+    if motion_loss:
+        # motion-mask loss (train_gui.py:363-370), landmark-scheduled; its
+        # render takes the deformation detached, so it is built without a
+        # graph
+        g = state.gauss
+        with torch.no_grad():
+            d = deform_gaussians(state.nodes, cfg.deform_cfg, g.xyz,
+                                 cam.time, feature=g.feature,
+                                 motion_mask=g.motion_mask,
+                                 step=sched.get("step", 10**9))
+        loss = loss + sched["lambda_motion"] * motion_mask_loss(
+            g, cam, gt_alpha, bg, cfg, d=d)
 
     (gauss_opt, mlp_opt, node_opt), g_probe = _grads_and_adam(
         loss, groups, probe, (state.gauss_opt, state.mlp_opt,
@@ -415,24 +462,28 @@ class Trainer:
     ``np.random.RandomState(seed)`` as the JAX trainer does, so both pick
     the same cameras; model draws come from the state's
     ``torch.Generator``.  ``precompile`` has no counterpart (PyTorch runs
-    eagerly).  The SIBR viewer, the sharded main stage, the motion-mask
-    loss (``alphas``) and the optical-flow loss (``flow_dirs``) are not
-    ported yet: asking for them raises ``NotImplementedError``."""
+    eagerly).  The SIBR viewer, the sharded main stage and the
+    optical-flow loss (``flow_dirs``) are not ported yet: asking for them
+    raises ``NotImplementedError``."""
 
     def __init__(self, cfg: TrainConfig, cameras, images,
                  init_points, init_colors, cameras_extent: float = 5.0,
                  seed: int = 0, log_fn=None, alphas=None,
                  flow_dirs=None, image_names=None, device="cuda"):
         """cameras: list[Camera] on ``device``; images: list of [H,W,3]
-        float arrays or tensors."""
-        if alphas is not None or flow_dirs is not None:
+        float arrays or tensors; alphas: optional list of [H,W,1] gt alpha
+        masks (the motion-mask loss when
+        ``cfg.gt_alpha_mask_as_dynamic_mask``)."""
+        if flow_dirs is not None:
             raise NotImplementedError(UNPORTED_LOSSES)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cameras = cameras
-        self.images = [torch.as_tensor(im, dtype=torch.float32,
-                                       device=self.device) for im in images]
-        self.alphas = None
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                         device=self.device)
+        self.images = [as_t(im) for im in images]
+        self.alphas = (None if alphas is None else
+                       [None if a is None else as_t(a) for a in alphas])
         self.flow_dirs = None
         self.extent = float(cameras_extent)
         self.state = init_train_state(
@@ -495,8 +546,9 @@ class Trainer:
             cam = dataclasses.replace(
                 cam, time=cam.time + torch.tensor(noise, dtype=torch.float32,
                                                   device=cam.device))
+        alpha = None if self.alphas is None else self.alphas[i]
         self._last_cam_idx = i
-        return cam, img, None
+        return cam, img, alpha
 
     def _motion_lambda(self, it: int) -> float:
         """Landmark-scheduled motion-mask weight (arguments/__init__.py:
@@ -513,7 +565,10 @@ class Trainer:
     def node_stage_iteration(self):
         cfg = self.cfg
         it = self.iteration_node
-        cam, gt, _ = self._pick_camera()
+        cam, gt, alpha = self._pick_camera()
+        motion = (self._motion_lambda(0) > 0 and alpha is not None
+                  and it > cfg.node_warm_up
+                  and self.state.ngauss.with_motion_mask)
         sched = dict(
             warm=1.0 if it < cfg.node_warm_up else 0.0,
             reg_on=1.0 if it > cfg.node_warm_up else 0.0,
@@ -522,8 +577,9 @@ class Trainer:
         # at the sampling/downsample boundary no optimizer step is taken
         # (train_gui.py:584-591)
         if it != cfg.iterations_node_sampling:
-            self.state, metrics = node_stage_step(self.state, cam, gt, cfg,
-                                                  sched)
+            self.state, metrics = node_stage_step(
+                self.state, cam, gt, cfg, sched,
+                gt_alpha=alpha if motion else None, motion_loss=motion)
         else:
             metrics = {}
         if it < cfg.iterations_node_sampling:
@@ -549,9 +605,11 @@ class Trainer:
         it = self.iteration
         if it % cfg.oneup_sh_degree_step == 0:
             self.state = oneup_sh(self.state, cfg)
-        cam, gt, _ = self._pick_camera()
+        cam, gt, alpha = self._pick_camera()
         lam_arap = R.landmark_interpolate(
             *cfg.node_cfg.lambda_arap_schedule, step=max(0, it))
+        lam_motion = self._motion_lambda(it)
+        motion = lam_motion > 0 and alpha is not None
         late = it > cfg.normal_dist_from_iter
         sched = dict(
             warm=1.0 if it < cfg.warm_up else 0.0,
@@ -560,8 +618,11 @@ class Trainer:
             lambda_arap=float(lam_arap),
             deform_lr=self.deform_sched(it), xyz_lr=self.xyz_sched(it),
             step=it)
-        self.state, metrics = main_stage_step(self.state, cam, gt, cfg,
-                                              sched)
+        if motion:
+            sched["lambda_motion"] = lam_motion
+        self.state, metrics = main_stage_step(
+            self.state, cam, gt, cfg, sched,
+            gt_alpha=alpha if motion else None, motion_loss=motion)
         self._post_main_maintenance(it)
         self.iteration += 1
         return metrics

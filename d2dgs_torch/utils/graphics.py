@@ -14,6 +14,10 @@ def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def get_world2view(R: np.ndarray, t: np.ndarray,
                    translate: np.ndarray | None = None,
                    scale: float = 1.0) -> np.ndarray:

@@ -1,5 +1,7 @@
 """Port parity, core math: cameras, quaternions, SH, helpers, KNN and
 preprocess of d2dgs_torch against d2dgs_tpu on the same numpy inputs."""
+import argparse
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,10 +153,26 @@ def test_preprocess_parity(kw):
     close(t.extent, j.extent, rtol=1e-6, atol=5e-3)
 
 
-def test_entry_points_refuse_missing_cuda():
+def test_entry_points_refuse_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="cuda"):
         tcams.orbit_camera(0.1, 0.2, 3.0, fov=0.8, H=8, W=8)
     with pytest.raises(RuntimeError, match="cuda"):
         tgeneral.resolve_device("cuda")
+    # the command line: without --device cpu it exits non-zero, saying so
+    from d2dgs_torch import cli
+    for argv in (["train", "-s", "x", "-m", "y"], ["render", "-m", "y"],
+                 ["mesh", "-m", "y"],
+                 ["mesh-metrics", "--renders_dir", "r", "--gt_dir", "g"]):
+        with pytest.raises(SystemExit, match="--device cpu") as e:
+            cli.main(argv)
+        assert e.value.code != 0
+    # a model dir whose saved flags say --device cpu does not move a later
+    # eval command off the card
+    cli.save_cfg_args(str(tmp_path), argparse.Namespace(
+        model_path=str(tmp_path), device="cpu"))
+    for cmd in ("render", "mesh"):
+        with pytest.raises(SystemExit, match="--device cpu") as e:
+            cli.main([cmd, "-m", str(tmp_path)])
+        assert e.value.code != 0

@@ -510,9 +510,72 @@ def test_main_stage_step_two_steps_match_jax(jstate, warm):
 
 
 def test_main_stage_step_refuses_unported_losses(jstate):
+    """Only the optical-flow loss is left unported (the motion-mask loss
+    is held against JAX below)."""
     ts = train_state_from_jax_arrays(_leaves(jstate), device="cpu")
     cam = orbit_camera(**CAM, device="cpu")
-    for kw in (dict(motion_loss=True), dict(flow_loss=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttrainer.main_stage_step(ts, cam, T(_gt()), CFG,
-                                     dict(SCHED, warm=0.0), **kw)
+    with pytest.raises(NotImplementedError, match="optical-flow.*ROADMAP"):
+        ttrainer.main_stage_step(ts, cam, T(_gt()), CFG,
+                                 dict(SCHED, warm=0.0), flow_loss=True)
+    assert "motion" not in ttrainer.UNPORTED_LOSSES
+
+
+def _gt_alpha(seed=4):
+    a = np.random.RandomState(seed).uniform(size=(CAM["H"], CAM["W"], 1))
+    return (a > 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("deformed", [False, True])
+def test_motion_mask_loss_matches_jax(jstate, deformed):
+    """The detached-geometry render with colours [mask, 0, 1 - mask]: the
+    same L1 and the same gradient, which reaches only the motion-mask
+    logits (the last feature channel)."""
+    from d2dgs_tpu.models.deform import deform_gaussians as jdeform
+    from d2dgs_torch.models.deform import deform_gaussians as tdeform
+    alpha = _gt_alpha()
+    jcam, tcam = jorbit(**CAM), orbit_camera(**CAM, device="cpu")
+    js = jstate
+    ts = train_state_from_jax_arrays(_leaves(js), device="cpu")
+    bg_j, bg_t = jnp.zeros(3), torch.zeros(3)
+
+    def jloss(feature):
+        g = dataclasses.replace(js.gauss, feature=feature)
+        d = jdeform(js.nodes, JCFG.deform_cfg, g.xyz, jcam.time,
+                    feature=g.feature, motion_mask=g.motion_mask) \
+            if deformed else None
+        return jtrainer.motion_mask_loss(g, jcam, jnp.asarray(alpha), bg_j,
+                                         JCFG, d=d)
+
+    j_val, j_grad = jax.value_and_grad(jloss)(js.gauss.feature)
+    g = ts.gauss
+    d = tdeform(ts.nodes, CFG.deform_cfg, g.xyz, tcam.time,
+                feature=g.feature, motion_mask=g.motion_mask) \
+        if deformed else None
+    t_val = ttrainer.motion_mask_loss(g, tcam, T(alpha), bg_t, CFG, d=d)
+    grads = torch.autograd.grad(
+        t_val, [g.feature, g.xyz, g.opacity, ts.nodes.nodes],
+        allow_unused=True)
+    np.testing.assert_allclose(float(t_val.detach()), float(j_val), rtol=1e-5)
+    assert float(np.abs(np.asarray(j_grad)[:, -1]).max()) > 0
+    close_normalised(grads[0], j_grad, what="d feature")
+    assert float(grads[0][:, :-1].abs().max()) == 0.0
+    assert all(x is None or float(x.abs().max()) == 0.0 for x in grads[1:])
+
+
+def test_main_stage_step_motion_term_matches_jax(jstate):
+    """One main-stage step with the motion-mask term at weight 0.5."""
+    sched = dict(SCHED, warm=0.0, lambda_motion=0.5)
+    js = jstate
+    ts = train_state_from_jax_arrays(_leaves(js), device="cpu")
+    draws = _arap_draws(jax.random.split(js.key)[1], 16)
+    alpha = _gt_alpha()
+    js, jm = jtrainer.main_stage_step(
+        js, jorbit(**CAM), jnp.asarray(_gt()), JCFG,
+        {k: jnp.float32(v) for k, v in sched.items()},
+        gt_alpha=jnp.asarray(alpha), motion_loss=True)
+    ts, tm = ttrainer.main_stage_step(
+        ts, orbit_camera(**CAM, device="cpu"), T(_gt()), CFG, sched,
+        gt_alpha=T(alpha), motion_loss=True, arap_draws=draws)
+    _compare_step(ts, tm, js, jm, "motion term")
+    # the term moved the motion-mask logits
+    assert float(ts.gauss_opt.mu["feature"][:, -1].abs().max()) > 0

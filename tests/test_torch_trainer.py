@@ -184,14 +184,17 @@ def _compare_groups(ts, tm, js, jm, points, what, xyz_lr, deform_lr):
 
 
 def test_node_stage_step_two_steps_match_jax(fresh_state):
-    """Two node-stage steps on the dense route: at warm 1 / reg_on 0 and,
-    from the JAX state after it, at warm 0 / reg_on 1 (the elastic,
-    acceleration and ARAP terms on, with JAX's draws)."""
+    """Node-stage steps on the dense route: at warm 1 / reg_on 0 and,
+    each from the JAX state after the last, at warm 0 / reg_on 1 (the
+    elastic, acceleration and ARAP terms on, with JAX's draws), then again
+    with the stage-1 motion-mask term against a gt alpha mask."""
     rs = np.random.RandomState(9)
     gt = rs.uniform(size=(32, 32, 3)).astype(np.float32)
+    alpha = (rs.uniform(size=(32, 32, 1)) > 0.5).astype(np.float32)
     jcam, tcam = jorbit(**CAM), orbit_camera(**CAM, device="cpu")
     js = fresh_state
-    for warm, reg_on in ((1.0, 0.0), (0.0, 1.0)):
+    for warm, reg_on, motion in ((1.0, 0.0, False), (0.0, 1.0, False),
+                                 (0.0, 1.0, True)):
         sched = dict(warm=warm, reg_on=reg_on, deform_lr=8e-4, xyz_lr=8e-4,
                      time_interval=TIME_INTERVAL, step=5.0)
         ts = _port(js)
@@ -203,17 +206,17 @@ def test_node_stage_step_two_steps_match_jax(fresh_state):
                                          T(jax.random.uniform(e2, (8,)))),
             acc_draws=treg.TimeDraws(T(jax.random.uniform(k_acc)),
                                      torch.zeros(0)))
+        motion_kw = lambda a: dict(gt_alpha=a, motion_loss=True) \
+            if motion else {}
         js, jm = jtrainer.node_stage_step(
             js, jcam, jnp.asarray(gt), JCFG_D,
-            {k: jnp.float32(v) for k, v in sched.items()})
+            {k: jnp.float32(v) for k, v in sched.items()},
+            **motion_kw(jnp.asarray(alpha)))
         ts, tm = ttrainer.node_stage_step(ts, tcam, T(gt), CFG_D, sched,
-                                          **draws)
-        _compare_groups(ts, tm, js, jm, "ngauss", f"warm {warm}", 8e-4,
-                        8e-4)
+                                          **motion_kw(T(alpha)), **draws)
+        _compare_groups(ts, tm, js, jm, "ngauss",
+                        f"warm {warm} motion {motion}", 8e-4, 8e-4)
         assert float(ts.ngauss_stats.denom.max()) >= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.node_stage_step(ts, tcam, T(gt), CFG_D, sched,
-                                 motion_loss=True)
 
 
 def test_main_stage_step_dense_route_matches_jax(fresh_state):

@@ -301,6 +301,11 @@ def test_trainer_trains_on_cpu():
         m = tr.step()
         assert np.isfinite(float(m["loss"]))
     assert tr.iteration == 6
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.Trainer(TINY, cams, imgs, pts, cols, alphas=imgs,
+    # gt alpha masks are taken (the motion-mask loss); flow files are not
+    alphas = [im[..., :1] for im in imgs]
+    tr = ttrainer.Trainer(TINY, cams, imgs, pts, cols, alphas=alphas,
+                          device="cpu")
+    assert tr.alphas[0].shape == (48, 48, 1)
+    with pytest.raises(NotImplementedError, match="optical-flow.*ROADMAP"):
+        ttrainer.Trainer(TINY, cams, imgs, pts, cols, flow_dirs=[[]] * 18,
                          device="cpu")
