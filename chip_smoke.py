@@ -75,12 +75,33 @@ Phases (each one fails the run with a non-zero exit):
      checkpoint's alive rows, a bitwise checkpoint round trip, a
      non-empty mesh, the native mesh library loaded, K1 and K2 launched
      and the dense route not; prints the step and view times, the TSDF
-     grid and the mesh's times and size.
+     grid and the mesh's times and size;
+  7. the geometry path on the articulated figure at the widths of
+     tools/convergence_torch.py (seed 0, 12 cameras x 8 times at
+     800x800, 60,000 surfels, capacity 120,000, 1,024 nodes, the 8x256
+     MLP): the ground-truth video (96 K1 renders: overflow 0, every image
+     finite with a non-empty alpha); the ground-truth mesh at t = 0 (the
+     static surfels fused from the t = 0 views at voxel 0.008) scored
+     against the scene's exact surface: chamfer <= 0.045, and its
+     render_mesh / mesh_shape_render covering the silhouette; the tool's
+     --fast schedule (200 stage-1 and 600 main-stage iterations, K1/K2):
+     finite losses and parameters, one K1 and one K2 launch per step,
+     a test PSNR at least 3 dB over an empty render's; K1 against its
+     plain version on the ground-truth view with the fullest tile
+     (tile_cap 8192), and K1 and K2 against theirs on the last training
+     step's own inputs and cotangent (tile_cap 2048), with the
+     tolerances of phases 2-4; then `cli mesh
+     --times 0.0 --voxel_size 0.008 --render_meshes` on the trained
+     state: a non-empty PLY and mesh_image/0000.png and
+     mesh_shape/0000.png each covering part of the silhouette; prints
+     the ground truth's, a step's, the fusion's, the extraction's and
+     the two mesh renders' times.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -200,7 +221,7 @@ def train_buffers(counts):
     return records, segment_layout(counts)
 
 
-def check_kernel(label, feats_sorted, binning, gx, chunk):
+def check_kernel(label, feats_sorted, binning, gx, chunk, tag="phase 2"):
     """K1 in serving and in training mode against blend_tiles_plain;
     returns the serving state and its check, with the training mode's
     flip counts under ``training``."""
@@ -215,8 +236,8 @@ def check_kernel(label, feats_sorted, binning, gx, chunk):
     sp = blend_tiles_plain(*args, chunk=chunk)
     torch.cuda.synchronize()
     pairs = int(binning.num_pairs)
-    train = check_states("phase 2", label + ", training mode", st, sp, pairs)
-    res = check_states("phase 2", label, sk, sp, pairs)
+    train = check_states(tag, label + ", training mode", st, sp, pairs)
+    res = check_states(tag, label, sk, sp, pairs)
     res["training"] = {k: train[k] for k in ("flipped", "flips")}
     return sk, res
 
@@ -232,12 +253,12 @@ def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 def check_backward(label, feats_sorted, binning, gx, chunk, flip,
-                   tiles=None):
-    """K2 vs its plain version on one scene: a seeded cotangent on the
-    map rows, zero at the pixels whose termination or median flipped
-    between K1 and the plain forward (``flip`` [T, PIX]) and, with
-    ``tiles``, outside those tiles; all 18 feature gradients compared
-    max-normalised per column."""
+                   tiles=None, g=None, tag="phase 2b"):
+    """K2 vs its plain version on one scene: a cotangent on the map rows
+    (``g``, or one drawn from a seed), zero at the pixels whose
+    termination or median flipped between K1 and the plain forward
+    (``flip`` [T, PIX]) and, with ``tiles``, outside those tiles; all 18
+    feature gradients compared max-normalised per column."""
     from d2dgs_torch.ops.cuda.blend import (blend_bwd, blend_fwd,
                                             blend_tiles_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
@@ -246,7 +267,7 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     num_tiles = binning.tile_start.shape[0]
     records, seg = train_buffers(binning.tile_count)
     state = blend_fwd(*args, records=records, segments=seg)
-    g = map_cotangent(state, seed=4)
+    g = map_cotangent(state, seed=4) if g is None else g
     g = torch.where(flip[:, None, :], 0.0, g)
     if tiles is not None:
         keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
@@ -258,7 +279,7 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     torch.cuda.synchronize()
     n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
     n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
-    return check_grads("phase 2b", label, dk, dp, n_flip, n_pix)
+    return check_grads(tag, label, dk, dp, n_flip, n_pix)
 
 
 def check_grads(tag, label, dk, dp, n_flip, n_pix):
@@ -280,6 +301,28 @@ def check_grads(tag, label, dk, dp, n_flip, n_pix):
                              f"version on {label}")
     return {"max_norm_err": max_err, "flipped": n_flip, "pixels": n_pix,
             "max_abs_err": float((dk - dp).abs().max())}
+
+
+@contextlib.contextmanager
+def kernel_inputs(name: str, keep):
+    """Inside the block, each call of the blend wrapper ``name`` of
+    ops/cuda/blend.py (``blend_fwd`` or ``blend_bwd``) first hands its
+    arguments to ``keep(args, kwargs)``; its launch count is unchanged."""
+    from d2dgs_torch.ops.cuda import blend as blend_lib
+    real = getattr(blend_lib, name)
+
+    def spy(*args, **kwargs):
+        keep(args, kwargs)
+        return real(*args, **kwargs)
+    # the wrapper counts its launch on the module's name for it, the spy
+    # while the block runs
+    spy.launches = real.launches
+    setattr(blend_lib, name, spy)
+    try:
+        yield
+    finally:
+        real.launches = spy.launches
+        setattr(blend_lib, name, real)
 
 
 def heavy_and_random_tiles(tile_count: torch.Tensor, n_heavy: int,
@@ -1441,6 +1484,298 @@ def check_finite(state, metrics, stage, it):
                                          f"of {name}.{k}")
 
 
+# phase 7: the geometry path on the articulated figure, at the widths of
+# tools/convergence_torch.py (seed 0, 12 cameras x 8 times at 800x800,
+# 60,000 surfels, capacity 120,000, 1,024 nodes, the 8x256 MLP) with its
+# --fast schedule (200 stage-1 and 600 main-stage iterations)
+PSNR_OVER_EMPTY = 3.0   # dB the short run's test views must gain over
+                        # an empty render (the guard against flee-collapse)
+
+
+def convergence_tool():
+    """tools/convergence_torch.py, imported as a module."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import convergence_torch
+    return convergence_torch
+
+
+def synced_ms(fn):
+    """(fn(), wall ms) with the device synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def silhouette_share(covered: np.ndarray, alpha: np.ndarray) -> float:
+    """The share of the ground-truth silhouette (alpha > 0.5) that a mesh
+    render covers."""
+    sil = alpha.reshape(covered.shape) > 0.5
+    return float((covered & sil).sum() / max(int(sil.sum()), 1))
+
+
+def launch_binning(pair_rank, tile_start, tile_count):
+    """The binning fields check_kernel and check_backward read, from a
+    blend launch's own arguments."""
+    import types
+    return types.SimpleNamespace(pair_rank=pair_rank, tile_start=tile_start,
+                                 tile_count=tile_count,
+                                 num_pairs=int(tile_count.sum()))
+
+
+def all_finite(state) -> bool:
+    from d2dgs_torch.io.checkpoint import tensor_leaves
+    return all(bool(torch.isfinite(t).all())
+               for t in tensor_leaves(state).values()
+               if t.is_floating_point())
+
+
+def phase_7(dev, card) -> dict:
+    """The ground truth, its mesh, a short training run and ``cli mesh
+    --render_meshes`` on the articulated figure, at full width."""
+    import tempfile
+
+    from PIL import Image
+
+    from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch.data.articulated import gt_gaussians
+    from d2dgs_torch.eval.mesh_metrics import score_mesh
+    from d2dgs_torch.mesh.extract import reconstruct_mesh
+    from d2dgs_torch.mesh.render import mesh_shape_render, render_mesh
+    from d2dgs_torch.mesh.tsdf import load_mesh_ply
+    from d2dgs_torch.models.deform import DeformConfig
+    from d2dgs_torch.ops.ssim import psnr
+    conv = convergence_tool()
+    t_start = time.time()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # ---- the ground-truth video, through K1 ----
+    busiest = {"pairs": -1}
+
+    def keep_busiest(args, kwargs):
+        """The K1 arguments of the view with the fullest tile."""
+        top = int(args[3].max())
+        if top > busiest["pairs"]:
+            busiest.update(pairs=top, args=args)
+
+    reset_counts()
+    with kernel_inputs("blend_fwd", keep_busiest):
+        data, gen_ms = synced_ms(lambda: conv.make_data(dev, **conv.SIZE))
+    counts = launch_counts()
+    add(counts)
+    cams, imgs, alphas = data["cams"], data["imgs"], data["alphas"]
+    scene = data["scene"]
+    if counts["blend_fwd"] != len(cams) or len(cams) != 96 \
+            or counts["blend_bwd"] or counts["blend_dense_fwd"]:
+        raise AssertionError(f"phase 7: ground-truth renders launched "
+                             f"{counts} for {len(cams)} views")
+    for k, (img, al) in enumerate(zip(imgs, alphas)):
+        if not (np.isfinite(img).all() and (al > 0.5).any()):
+            raise AssertionError(f"phase 7: ground-truth view {k} is not "
+                                 f"finite or has an empty alpha")
+    log(f"[phase 7] ground truth: {len(cams)} views of {scene.n_surfels} "
+        f"surfels at {conv.SIZE['H']}x{conv.SIZE['W']} in {gen_ms:.1f} ms "
+        f"({gen_ms / len(cams):.1f} ms per view with the host scene), "
+        f"{counts['blend_fwd']} K1 launches, overflow 0 (the dataset "
+        f"raises otherwise) ({card})")
+    # K1 against its plain version on that view's own inputs, at the
+    # ground truth's tile_cap 8192 (the launches of this check and the
+    # next are not counted)
+    fs, pair_rank, tile_start, tile_count, gx, chunk = busiest.pop("args")
+    label = (f"ground-truth view with the fullest tile ({busiest['pairs']} "
+             f"pairs, tile_cap 8192)")
+    with torch.no_grad():
+        _, res_gt = check_kernel(label, fs, launch_binning(
+            pair_rank, tile_start, tile_count), gx, chunk, tag="phase 7")
+    res_gt.pop("flip_mask")
+    res_gt["busiest_tile_pairs"] = busiest["pairs"]
+    del fs, pair_rank, tile_start, tile_count
+
+    # ---- the ground-truth mesh at t = 0 (static deform) ----
+    parts = [(p.name, len(p.pos)) for p in scene.parts]
+    gt_pts, _ = scene.surfel_positions(0.0)
+    views0 = [k for k, c in enumerate(cams) if float(c.time) == 0.0]
+    g0 = gt_gaussians(scene, 0.0, device=dev)
+    rep = {}
+    reset_counts()
+    verts, faces, colors = reconstruct_mesh(
+        [cams[k] for k in views0], g0, None, None,
+        RasterConfig(tile_cap=8192, chunk=64), mesh_time=0.0,
+        alpha_masks=[alphas[k] for k in views0], voxel=conv.MESH_VOXEL,
+        keep_clusters=16, return_colors=True,
+        deform_cfg=DeformConfig(deform_type="static"), report=rep)
+    add(launch_counts())
+    del g0
+    gt_score = score_mesh(verts, faces, gt_pts, parts, device=dev)
+    log(f"[phase 7] ground-truth mesh at t=0 from {len(views0)} views, voxel "
+        f"{conv.MESH_VOXEL}: grid {'x'.join(map(str, rep['dims']))}, "
+        f"fusion {rep['integrate_ms']:.1f} ms, extraction "
+        f"{rep['extract_ms']:.1f} ms, {verts.shape[0]} verts, "
+        f"{faces.shape[0]} faces; chamfer {gt_score['chamfer']:.5f} "
+        f"(pred->gt {gt_score['pred_to_gt']:.5f}, gt->pred "
+        f"{gt_score['gt_to_pred']:.5f}; ceiling {conv.CHAMFER_CEIL}); "
+        f"gt->pred by part "
+        + json.dumps({k: round(v, 4) for k, v in gt_score["by_part"].items()})
+        + f" ({card})")
+    if not gt_score["chamfer"] <= conv.CHAMFER_CEIL:
+        raise AssertionError(f"phase 7: ground-truth mesh chamfer "
+                             f"{gt_score['chamfer']:.5f} > "
+                             f"{conv.CHAMFER_CEIL}")
+    # the mesh rasterizer on it, from the first t=0 view
+    cam0, alpha0 = cams[views0[0]], alphas[views0[0]]
+    renders = {}
+    for name, fn in (("render_mesh",
+                      lambda: render_mesh(cam0, verts, faces, colors)),
+                     ("mesh_shape_render",
+                      lambda: mesh_shape_render(cam0, verts, faces))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (img, _, mask), ms = synced_ms(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        share = silhouette_share(mask.cpu().numpy() > 0, alpha0)
+        if not (torch.isfinite(img).all() and share > 0.5):
+            raise AssertionError(f"phase 7: {name} of the ground-truth mesh "
+                                 f"covers {share:.3f} of the silhouette")
+        renders[name] = {"ms": ms, "peak_bytes": peak, "share": share}
+    log(f"[phase 7] ground-truth mesh renders at {cam0.H}x{cam0.W}: "
+        f"render_mesh "
+        f"{renders['render_mesh']['ms']:.1f} ms (peak "
+        f"{renders['render_mesh']['peak_bytes']} B above the inputs, "
+        f"silhouette covered {renders['render_mesh']['share']:.4f}), "
+        f"mesh_shape_render {renders['mesh_shape_render']['ms']:.1f} ms "
+        f"(peak {renders['mesh_shape_render']['peak_bytes']} B, "
+        f"{renders['mesh_shape_render']['share']:.4f}) ({card})")
+    torch.cuda.empty_cache()
+
+    # ---- a short training run: the tool's --fast schedule ----
+    cfg = conv.train_config(fast=True)
+    tr = conv.make_trainer(cfg, data, dev)
+    test = [k for k in range(len(cams)) if k in data["test_idx"]]
+    empty = float(np.mean([float(psnr(torch.zeros(imgs[k].shape,
+                                                  device=dev),
+                                      torch.as_tensor(imgs[k], device=dev)))
+                           for k in test]))
+    reset_counts()
+    node_steps, main_ms, losses, at_main = 0, [], [], None
+    last_step = {}
+    for i in range(tr.total_iterations()):
+        main = tr.iteration_node >= cfg.iterations_node_rendering
+        if main and at_main is None:
+            at_main = launch_counts()
+        if i < tr.total_iterations() - 1:
+            m, ms = synced_ms(tr.step)
+        else:   # keep the last main-stage step's K2 arguments
+            with kernel_inputs("blend_bwd",
+                               lambda a, k: last_step.update(args=a, kw=k)):
+                m, ms = synced_ms(tr.step)
+        if not m:
+            continue
+        losses.append(float(m["loss"]))
+        if main:
+            main_ms.append(ms)
+        else:
+            node_steps += 1
+    counts = launch_counts()
+    add(counts)
+    main_counts = {k: counts[k] - at_main[k] for k in counts}
+    if not (np.isfinite(losses).all() and all_finite(tr.state)):
+        raise AssertionError("phase 7: a non-finite loss or parameter")
+    # the main stage runs iterations 1 .. cfg.iterations + 1
+    if not (main_counts["blend_fwd"] == main_counts["blend_bwd"]
+            == len(main_ms) == cfg.iterations + 1):
+        raise AssertionError(f"phase 7: {main_counts} launches over "
+                             f"{len(main_ms)} main-stage steps")
+    if not (at_main["blend_fwd"] == at_main["blend_bwd"] == node_steps) \
+            or counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
+        raise AssertionError(f"phase 7: {at_main} launches over "
+                             f"{node_steps} stage-1 steps, {counts} in all")
+    final = conv.test_metrics(tr, data)
+    alive = int(tr.state.gauss.num_alive)
+    log(f"[phase 7] --fast run: {node_steps} stage-1 and {len(main_ms)} "
+        f"main-stage steps, a main-stage step {np.mean(main_ms[1:]):.2f} ms "
+        f"(mean of steps 2-{len(main_ms)}, median "
+        f"{np.median(main_ms[1:]):.2f}, each between two device "
+        f"synchronisations) ({card}); test PSNR {final['psnr']:.3f} against "
+        f"{empty:.3f} for an empty render (+{final['psnr'] - empty:.3f} dB), "
+        f"SSIM {final['ssim']:.4f}, MS-SSIM {final['ms_ssim']:.4f}, "
+        f"lpips_rand {final['lpips_rand']:.6f}; {alive} alive; K1/K2 "
+        f"launches {at_main['blend_fwd']}/{at_main['blend_bwd']} in stage "
+        f"1, {main_counts['blend_fwd']}/{main_counts['blend_bwd']} in the "
+        f"main stage")
+    if not final["psnr"] >= empty + PSNR_OVER_EMPTY:
+        raise AssertionError(f"phase 7: test PSNR {final['psnr']:.3f} is not "
+                             f"{PSNR_OVER_EMPTY} dB over the empty render's "
+                             f"{empty:.3f}")
+    # K1 and K2 against their plain versions on the last step's own
+    # inputs and cotangent, at the training tile_cap
+    fs, pair_rank, tile_start, tile_count, gx, _, _, g, _ = last_step["args"]
+    chunk = last_step["kw"]["chunk"]
+    binning = launch_binning(pair_rank, tile_start, tile_count)
+    top = int(tile_count.max())
+    label = (f"main-stage step {cfg.iterations + 1} (fullest tile {top} "
+             f"pairs, tile_cap {cfg.raster.tile_cap})")
+    with torch.no_grad():
+        _, res_step = check_kernel(label, fs, binning, gx, chunk,
+                                   tag="phase 7")
+        res_step_bwd = check_backward(
+            label + ", its own cotangent on the 16 fullest + 48 seeded "
+            "tiles", fs, binning, gx, chunk, res_step.pop("flip_mask"),
+            tiles=heavy_and_random_tiles(tile_count, 16, 48, seed=8), g=g,
+            tag="phase 7")
+    res_step["busiest_tile_pairs"] = res_step_bwd["busiest_tile_pairs"] = top
+    del last_step, fs, pair_rank, tile_start, tile_count, g, binning
+    torch.cuda.empty_cache()
+
+    # ---- the CLI on the trained state ----
+    reset_counts()
+    with tempfile.TemporaryDirectory(prefix="d2dgs_phase7_") as tmp:
+        mesh = conv.mesh_and_score(cfg, tr, data, (0.0,), tmp, log=log)
+        model = Path(tmp) / "model"
+        v, f = load_mesh_ply(model / "mesh" / "mesh_0000.ply")
+        if f.shape[0] == 0:
+            raise AssertionError("phase 7: cli mesh wrote an empty PLY")
+        # cli mesh renders from the first test view, view 0 at t = 0
+        shares = {}
+        for sub in ("mesh_image", "mesh_shape"):
+            png = model / sub / "0000.png"
+            if not png.exists():
+                raise AssertionError(f"phase 7: {sub}/0000.png missing")
+            img = np.asarray(Image.open(png))
+            # render_mesh's background is white
+            shares[sub] = silhouette_share((img != 255).any(-1), alphas[0])
+            if not shares[sub] > 0:
+                raise AssertionError(f"phase 7: {sub}/0000.png covers none "
+                                     f"of the silhouette")
+    add(launch_counts())
+    cli = mesh["cli"][0]
+    log(f"[phase 7] cli mesh --times 0.0 --voxel_size {conv.MESH_VOXEL} "
+        f"--render_meshes: {f.shape[0]} faces, grid "
+        f"{'x'.join(map(str, cli['dims']))}, fusion "
+        f"{cli['integrate_ms']:.1f} ms, extraction {cli['extract_ms']:.1f} "
+        f"ms, render_mesh {cli['render_mesh_ms']:.1f} ms, mesh_shape_render "
+        f"{cli['mesh_shape_ms']:.1f} ms ({card}); chamfer "
+        f"{mesh['chamfer'][0]} (pred->gt {mesh['pred_to_gt'][0]}, gt->pred "
+        f"{mesh['gt_to_pred'][0]}); silhouette covered: "
+        + json.dumps({k: round(v, 4) for k, v in shares.items()}))
+    log(f"[phase 7] launches {launches}; phase 7 "
+        f"{time.time() - t_start:.1f} s")
+    return {"launches": launches, "gen_ms": gen_ms,
+            "fwd_checks": {"geometry gt view": res_gt,
+                           "geometry step": res_step},
+            "bwd_checks": {"geometry step": res_step_bwd},
+            "gt_chamfer": gt_score["chamfer"],
+            "main_step_ms": float(np.mean(main_ms[1:])),
+            "test_psnr": final["psnr"], "empty_psnr": empty,
+            "render_mesh_ms": renders["render_mesh"]["ms"],
+            "mesh_shape_ms": renders["mesh_shape_render"]["ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1771,11 +2106,19 @@ def main() -> int:
 
     # ---- phase 6: the command line, train -> render -> mesh ----
     res6 = phase_6(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the geometry path on the articulated figure ----
+    res7 = phase_7(dev, card)
+    fwd_checks.update(res7["fwd_checks"])
+    bwd_checks.update(res7["bwd_checks"])
     paths = {"serve": serve_launches, "train": train_launches,
-             "trainer": res5b["launches"], "cli": res6["launches"]}
+             "trainer": res5b["launches"], "cli": res6["launches"],
+             "geometry": res7["launches"]}
     needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
               "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
-              "cli": ("blend_fwd", "blend_bwd")}
+              "cli": ("blend_fwd", "blend_bwd"),
+              "geometry": ("blend_fwd", "blend_bwd")}
     for path, names in needed.items():
         for k in names:
             if paths[path][k] == 0:
@@ -1789,10 +2132,14 @@ def main() -> int:
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
         "launches": serve_launches["blend_fwd"]
-        + train_launches["blend_fwd"] + res6["launches"]["blend_fwd"],
+        + train_launches["blend_fwd"] + res6["launches"]["blend_fwd"]
+        + res7["launches"]["blend_fwd"],
         "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], **flip_fields(fwd_checks),
+        "geometry_checks": {k: {f: fwd_checks[k][f] for f in (
+            "busiest_tile_pairs", "max_abs_err", "flipped")}
+            for k in res7["fwd_checks"]},
         "ms": kernel_ms[0],
         "ms_t05": k1_serve_ms, "bound_ms_t05": bound1_t["bound_ms"],
         "ms_training_mode": k1_train_ms,
@@ -1805,11 +2152,12 @@ def main() -> int:
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
         "launches": train_launches["blend_bwd"]
-        + res6["launches"]["blend_bwd"],
+        + res6["launches"]["blend_bwd"] + res7["launches"]["blend_bwd"],
         "launches_by_path": by_path("blend_bwd"),
         "max_abs_err": res_k2["max_abs_err"],
         "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
         "flipped_pixels": {k: v["flipped"] for k, v in bwd_checks.items()},
+        "geometry_check": res7["bwd_checks"]["geometry step"],
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": bound2["bound_ms"], "bound_by": bound2["bound_by"],
         "library_ms": None,
@@ -1819,7 +2167,8 @@ def main() -> int:
         "checkpoint_bytes": seg_t.ckpt.numel() * 4,
         "walk_histogram": hist_t,
         "step_ms": step_ms, "train_stages_ms": train_stages,
-        "l1": l1s, "cli_step_ms": res6["train_step_ms"]}, {
+        "l1": l1s, "cli_step_ms": res6["train_step_ms"],
+        "geometry_step_ms": res7["main_step_ms"]}, {
         "name": "blend_dense_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:411",

@@ -16,11 +16,12 @@ command line asks for the CPU.
 ``main(argv, report)`` fills an optional ``report`` dict with the
 command's measurements (train step times taken with a device
 synchronisation around each step, ms per test view, the mesh grid and
-its fusion and extraction times) for callers that time the CLI.
+its fusion and extraction times, and with ``mesh --render_meshes`` the
+two mesh renders' times) for callers that time the CLI.
 
 Not ported yet, each raising NotImplementedError: ``edit``,
-``mesh --render_meshes``, ``train --mesh_shape`` / ``--exchange_cap`` and
-a scene with RAFT flow files (the optical-flow loss).
+``train --mesh_shape`` / ``--exchange_cap`` and a scene with RAFT flow
+files (the optical-flow loss).
 """
 from __future__ import annotations
 
@@ -429,13 +430,11 @@ def cmd_mesh(argv, report=None) -> int:
                         "every distinct test-camera time, like "
                         "render_mesh.py:169-180)")
     p.add_argument("--render_meshes", action="store_true",
-                   help="also render the meshes (needs the mesh "
-                        "rasterizer, not ported yet)")
+                   help="also render mesh_image/ (vertex colours) and "
+                        "mesh_shape/ (gray headlight shading) per "
+                        "timestamp, like render_mesh.py:227-240")
     args = merge_cfg_args(p.parse_args(argv), argv)
     dev = _device(args)
-    if args.render_meshes:
-        raise NotImplementedError("--render_meshes needs mesh/render.py, "
-                                  "which is not ported yet (ROADMAP.md)")
     cfg, info, state = _restore(args, dev)
 
     from .mesh.extract import reconstruct_mesh
@@ -460,6 +459,15 @@ def cmd_mesh(argv, report=None) -> int:
             deform_cfg=cfg.deform_cfg, report=rep)
         save_mesh_ply(os.path.join(out, f"mesh_{i:04d}.ply"),
                       verts, faces, colors=colors)
+        if args.render_meshes and faces.shape[0] > 0:
+            from .mesh.render import write_mesh_renders
+            samples = info.test_cameras or info.train_cameras
+            write_mesh_renders(samples[min(i, len(samples) - 1)].camera,
+                               verts, faces, colors, args.model_path, i,
+                               report=rep)
+            for sub, key in (("mesh_image", "render_mesh_ms"),
+                             ("mesh_shape", "mesh_shape_ms")):
+                print(f"{sub}/{i:04d}.png in {rep[key]:.1f} ms", flush=True)
         if report is not None:
             report.setdefault("meshes", []).append(
                 dict(rep, time=t, verts=int(verts.shape[0]),

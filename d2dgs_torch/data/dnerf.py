@@ -3,10 +3,10 @@ the reference's scene/dataset_readers.py:272-391 and the sniffing of
 scene/__init__.py:45-66).
 
 Images stay numpy on the host; each sample's camera is built on
-``device`` (``cuda`` unless the caller asks for another).  The Blender
-(``transforms_train.json``) and Dynamic-360 (``transforms.json``) layouts
-are read; the other layouts the JAX package sniffs raise
-``NotImplementedError``.
+``device`` (``cuda`` unless the caller asks for another).  This module
+reads the Blender (``transforms_train.json``) and Dynamic-360
+(``transforms.json``) layouts; ``load_scene`` hands COLMAP, DTU,
+Nerfies/HyperNeRF, Plenoptic and CMU Panoptic layouts to their readers.
 """
 from __future__ import annotations
 
@@ -137,32 +137,33 @@ def load_blender_scene(path: str, eval_split: bool = True,
                      init_points=pts, init_colors=cols)
 
 
-# sentinel file -> layout, in the JAX package's sniffing order
-_LAYOUTS = (("sparse", "COLMAP"), ("colmap_sparse", "COLMAP"),
-            ("transforms_train.json", "Blender"),
-            ("cameras_sphere.npz", "DTU"),
-            ("dataset.json", "Nerfies/HyperNeRF"),
-            ("poses_bounds.npy", "Plenoptic (DyNeRF)"),
-            ("transforms.json", "Dynamic-360"),
-            ("train_meta.json", "CMU Panoptic"))
-
-
 def load_scene(path: str, device="cuda", **kw) -> SceneInfo:
     """Dataset-type sniffing by sentinel file, in the JAX package's order
-    (scene/__init__.py:45-66).  Blender and Dynamic-360 are read; a
-    layout whose reader is not ported yet raises NotImplementedError."""
-    for sentinel, layout in _LAYOUTS:
-        if not os.path.exists(os.path.join(path, sentinel)):
-            continue
-        if layout == "Blender":
-            return load_blender_scene(path, device=device, **kw)
-        if layout == "Dynamic-360":          # one transforms file
-            train = read_transforms(path, sentinel, device=device)
-            pts, cols = _random_cloud(kw.get("num_init_points", 100_000),
-                                      kw.get("seed", 0))
-            return SceneInfo(train_cameras=train, test_cameras=[],
-                             nerf_norm=get_nerfpp_norm(train),
-                             init_points=pts, init_colors=cols)
-        raise NotImplementedError(
-            f"{path}: the {layout} reader is not ported yet (ROADMAP.md)")
+    (scene/__init__.py:45-66).  All readers share the SceneInfo contract
+    and build their cameras on ``device``."""
+    exists = lambda *p: os.path.exists(os.path.join(path, *p))  # noqa: E731
+    if exists("sparse") or exists("colmap_sparse"):
+        from .colmap import load_colmap_scene
+        return load_colmap_scene(path, device=device, **kw)
+    if exists("transforms_train.json"):
+        return load_blender_scene(path, device=device, **kw)
+    if exists("cameras_sphere.npz"):
+        from .dtu import load_dtu_scene
+        return load_dtu_scene(path, device=device, **kw)
+    if exists("dataset.json"):
+        from .nerfies import load_nerfies_scene
+        return load_nerfies_scene(path, device=device, **kw)
+    if exists("poses_bounds.npy"):
+        from .plenoptic import load_plenoptic_scene
+        return load_plenoptic_scene(path, device=device, **kw)
+    if exists("transforms.json"):  # Dynamic-360 (one transforms file)
+        train = read_transforms(path, "transforms.json", device=device)
+        pts, cols = _random_cloud(kw.get("num_init_points", 100_000),
+                                  kw.get("seed", 0))
+        return SceneInfo(train_cameras=train, test_cameras=[],
+                         nerf_norm=get_nerfpp_norm(train),
+                         init_points=pts, init_colors=cols)
+    if exists("train_meta.json"):
+        from .cmu import load_cmu_scene
+        return load_cmu_scene(path, device=device, **kw)
     raise ValueError(f"unrecognised dataset layout at {path}")

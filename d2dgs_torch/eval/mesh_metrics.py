@@ -6,7 +6,9 @@ DG-Mesh's chamfer).
   (/LPIPS substitute) over render/gt files paired by zero-padded stem,
   written to ``<name>_results.json``.
 * ``chamfer_distance(a, b)``: symmetric point-set chamfer with the exact
-  KNN op; ``mesh_chamfer`` samples both surfaces first.
+  KNN op; ``mesh_chamfer`` samples both surfaces first;
+  ``score_mesh`` scores a mesh against exact ground-truth surface
+  samples, with both one-sided means and a per-part breakdown.
 """
 from __future__ import annotations
 
@@ -98,3 +100,40 @@ def mesh_chamfer(verts_pred, faces_pred, verts_gt, faces_gt,
     pb = sample_mesh_surface(np.asarray(verts_gt),
                              np.asarray(faces_gt), n_samples, seed + 1)
     return chamfer_distance(pa, pb, device=device)
+
+
+@torch.no_grad()
+def score_mesh(verts: np.ndarray, faces: np.ndarray, gt_pts: np.ndarray,
+               parts=(), n_samples: int = 30_000, device="cuda") -> dict:
+    """Chamfer of a mesh against exact ground-truth surface samples, as
+    the JAX package's convergence gate scores it
+    (tools/convergence_bench.py ``score_meshes``): ``n_samples`` area-
+    weighted samples of the mesh (seed 0) against as many ground-truth
+    points drawn by ``np.random.RandomState(0)``, with both one-sided
+    means (pred->gt: spurious geometry; gt->pred: missing geometry).
+    ``parts``: (name, count) pairs in ``gt_pts``' order; every
+    ground-truth point's distance to the mesh samples is averaged per
+    part (``by_part``).  An empty mesh scores inf."""
+    dev = resolve_device(device)
+    if faces.shape[0] == 0:
+        inf = float("inf")
+        return {"chamfer": inf, "pred_to_gt": inf, "gt_to_pred": inf,
+                "by_part": {name: inf for name, _ in parts}}
+    pred = sample_mesh_surface(verts, faces, n_samples)
+    sub = gt_pts[np.random.RandomState(0).choice(
+        gt_pts.shape[0], min(n_samples, gt_pts.shape[0]), replace=False)]
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    a, b = t(pred), t(sub)
+    dist = lambda q, r: torch.sqrt(torch.clamp_min(knn(q, r, 1)[0][:, 0],
+                                                   0.0))
+    d_pg = float(torch.mean(dist(a, b)))
+    d_gp = float(torch.mean(dist(b, a)))
+    by_part = {}
+    if parts:
+        d_all = dist(t(gt_pts), a).cpu().numpy()
+        off = 0
+        for name, k in parts:
+            by_part[name] = float(d_all[off:off + k].mean())
+            off += k
+    return {"chamfer": d_pg + d_gp, "pred_to_gt": d_pg, "gt_to_pred": d_gp,
+            "by_part": by_part}

@@ -1,9 +1,8 @@
 """Camera trajectories and trajectory rendering (counterpart of
 d2dgs_tpu/eval/trajectories.py): render.py:92-170's time sweep and
 spiral/orbit modes and utils/render_utils.py:203-268's ellipse paths,
-written as PNG frames and an animated GIF (no ffmpeg).
-``render_mesh_trajectory`` needs the mesh rasterizer, which is not
-ported yet (ROADMAP.md).
+written as PNG frames and an animated GIF (no ffmpeg), and
+render_mesh_trajectory.py's per-frame mesh extraction and re-render.
 """
 from __future__ import annotations
 
@@ -73,6 +72,40 @@ def render_trajectory(cams, gauss, nodes, node_cfg, raster_cfg,
     if out_dir and save_video and frames:
         save_gif(os.path.join(out_dir, video_name), frames, fps=fps)
     return frames
+
+
+def render_mesh_trajectory(cams, train_cams, gauss, nodes, node_cfg,
+                           raster_cfg, out_dir: str, alpha_masks=None,
+                           voxel: float = 0.008, keep_clusters: int = 1,
+                           bg=None, deform_cfg=None):
+    """Per-trajectory-frame mesh extraction and re-render
+    (render_mesh_trajectory.py): for each trajectory camera, fuse a mesh
+    at that camera's time from the training views, then render it with
+    the mesh rasterizer from the trajectory viewpoint.  Writes
+    ``mesh_NNNN.ply``, ``mesh_image/`` and ``mesh_shape/`` PNGs and a GIF
+    of each; returns the (image, shape) frames as host arrays."""
+    from ..mesh.extract import reconstruct_mesh
+    from ..mesh.render import write_mesh_renders
+    from ..mesh.tsdf import save_mesh_ply
+    os.makedirs(out_dir, exist_ok=True)
+    shape_frames, image_frames = [], []
+    for i, cam in enumerate(cams):
+        verts, faces, colors = reconstruct_mesh(
+            train_cams, gauss, nodes, node_cfg, raster_cfg,
+            mesh_time=float(cam.time), bg=bg, alpha_masks=alpha_masks,
+            voxel=voxel, keep_clusters=keep_clusters, return_colors=True,
+            deform_cfg=deform_cfg)
+        save_mesh_ply(os.path.join(out_dir, f"mesh_{i:04d}.ply"),
+                      verts, faces, colors=colors)
+        if faces.shape[0] == 0:
+            continue
+        img, shp = write_mesh_renders(cam, verts, faces, colors, out_dir, i)
+        image_frames.append(img)
+        shape_frames.append(shp)
+    if image_frames:
+        save_gif(os.path.join(out_dir, "mesh_image.gif"), image_frames)
+        save_gif(os.path.join(out_dir, "mesh_shape.gif"), shape_frames)
+    return image_frames, shape_frames
 
 
 def save_gif(path: str, frames, fps: int = 20) -> None:

@@ -534,6 +534,20 @@ class Trainer:
         else:
             self._stack = list(range(n))
 
+    def sampler_state(self) -> dict:
+        """The camera sampler's state (its ``RandomState`` and the cameras
+        left in this pass) as JSON values, for a run that resumes."""
+        _, keys, pos, has_gauss, cached = self.rng.get_state()
+        return {"keys": keys.tolist(), "pos": int(pos),
+                "has_gauss": int(has_gauss), "cached": float(cached),
+                "stack": list(self._stack)}
+
+    def set_sampler_state(self, s: dict) -> None:
+        """Restores what ``sampler_state`` returned."""
+        self.rng.set_state(("MT19937", np.asarray(s["keys"], np.uint32),
+                            s["pos"], s["has_gauss"], s["cached"]))
+        self._stack = list(s["stack"])
+
     def _pick_camera(self):
         if not self._stack:
             self._refill_stack()

@@ -2,7 +2,8 @@
 reflection and saved-config merge against d2dgs_tpu.cli's, the shared
 init-cloud subsampling, the commands that are not ported yet, and (slow)
 the whole train -> render -> mesh journey on a tiny D-NeRF scene on the
-CPU, once in-process and once as ``python -m d2dgs_torch.cli``."""
+CPU, once in-process and once as ``python -m d2dgs_torch.cli``; and
+``mesh --render_meshes`` on that scene."""
 import argparse
 import json
 import os
@@ -116,14 +117,47 @@ def test_init_points_match_jax():
 def test_unported_commands_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["edit", "-m", str(tmp_path), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["mesh", "-m", str(tmp_path), "--device", "cpu",
-                   "--render_meshes"])
     for flags in (["--mesh_shape", "2x2"], ["--exchange_cap", "4096"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path),
                        "--device", "cpu", *flags])
     assert tcli.main([]) == 2
+
+
+def test_mesh_render_meshes(tmp_path):
+    """``mesh --render_meshes`` on a model dir made from the small scene
+    without training (the init cloud made opaque): the PLY and both mesh
+    renders are written, and the report holds their times."""
+    from test_torch_data_io import dnerf_fixture
+
+    from d2dgs_torch.io.checkpoint import save_train_state
+    from d2dgs_torch.train.trainer import init_train_state
+    root = dnerf_fixture(tmp_path / "scene", n_cams=4, n_times=2, H=32,
+                         W=32, n_test=2)
+    model = str(tmp_path / "model")
+    args = tcli._base_parser("train", True).parse_args(
+        ["-s", root, "-m", model, "--device", "cpu", *TINY])
+    tcli.save_cfg_args(model, args)
+    cfg = tcli.config_from_args(args)
+    info = tcli._load_scene(args, torch.device("cpu"))
+    state = init_train_state(cfg, *tcli._init_points(info, cfg, 0),
+                             device="cpu")
+    with torch.no_grad():
+        state.gauss.opacity.fill_(4.0)
+    save_train_state(os.path.join(model, "ckpt.npz"), state, 1, 1)
+    report = {}
+    assert tcli.main(["mesh", "-s", root, "-m", model, "--device", "cpu",
+                      "--ckpt", "ckpt.npz", "--voxel_size", "0.1",
+                      "--max_times", "1", "--render_meshes"],
+                     report=report) == 0
+    (m,) = report["meshes"]
+    assert m["faces"] > 0
+    assert m["render_mesh_ms"] > 0 and m["mesh_shape_ms"] > 0
+    from PIL import Image
+    for sub in ("mesh_image", "mesh_shape"):
+        img = np.asarray(Image.open(os.path.join(model, sub, "0000.png")))
+        assert img.shape == (32, 32, 3)
+        assert (img != 255).any(axis=-1).any()   # not all background
 
 
 def test_train_refuses_flow_files(tmp_path):
@@ -217,7 +251,8 @@ def test_cli_train_render_mesh_journey(tmp_path):
     report = {}
     assert tcli.main(["mesh", "-s", root, "-m", model, "--device", "cpu",
                       "--ckpt", "ckpt.npz", "--voxel_size", "0.5",
-                      "--max_times", "1"], report=report) == 0
+                      "--max_times", "1", "--render_meshes"],
+                     report=report) == 0
     from d2dgs_torch.mesh.tsdf import load_mesh_ply
     v, f = load_mesh_ply(os.path.join(model, "mesh", "mesh_0000.ply"))
     assert v.shape[1] == 3 and f.shape[1] == 3
@@ -226,3 +261,6 @@ def test_cli_train_render_mesh_journey(tmp_path):
     with open(os.path.join(root, "transforms_train.json")) as fh:
         n_train = len(json.load(fh)["frames"])
     assert m["voxels"] == int(np.prod(m["dims"])) and m["views"] == n_train
+    if m["faces"]:
+        for sub in ("mesh_image", "mesh_shape"):
+            assert os.path.exists(os.path.join(model, sub, "0000.png"))

@@ -1,6 +1,7 @@
-"""The port's import rule: no module of d2dgs_torch/ and not chip_smoke.py
-imports jax, jaxlib or the JAX package d2dgs_tpu, at module level or
-inside a function (the port must run where only torch and CUDA exist).
+"""The port's import rule: no module of d2dgs_torch/, not chip_smoke.py
+and not tools/convergence_torch.py imports jax, jaxlib or the JAX package
+d2dgs_tpu, at module level or inside a function (the port must run where
+only torch and CUDA exist).
 Read with ast, so nothing is imported to check it."""
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "d2dgs_tpu")
-FILES = sorted((ROOT / "d2dgs_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "d2dgs_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "convergence_torch.py"]
 
 
 def forbidden_imports(source: str) -> list[str]:
@@ -51,7 +53,9 @@ def test_the_port_has_modules_to_check():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for m in ("d2dgs_torch/cli.py", "d2dgs_torch/data/dnerf.py",
               "d2dgs_torch/mesh/tsdf.py", "d2dgs_torch/native/__init__.py",
-              "chip_smoke.py"):
+              "d2dgs_torch/mesh/render.py", "d2dgs_torch/data/articulated.py",
+              "d2dgs_torch/data/colmap.py", "chip_smoke.py",
+              "tools/convergence_torch.py"):
         assert m in names
 
 
