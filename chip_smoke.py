@@ -95,7 +95,24 @@ Phases (each one fails the run with a non-zero exit):
      state: a non-empty PLY and mesh_image/0000.png and
      mesh_shape/0000.png each covering part of the silhouette; prints
      the ground truth's, a step's, the fusion's, the extraction's and
-     the two mesh renders' times.
+     the two mesh renders' times;
+  8. the optical-flow training path at full width: phase 6's scene and
+     start checkpoint with RAFT-format flow files written from the
+     port's own render_flow of the unperturbed scene (one per training
+     view, toward the same camera at the next time, the last time
+     toward the one before; every fourth at 400x400, so load_flow
+     resizes it); checks the flow term of the unperturbed scene against
+     its own target (< 1e-6), rasterize_3dgs on the card against the
+     CPU on a 16x16-tile crop (radii bitwise, image and alpha to 2e-5,
+     depth to 2e-4), that a main-stage step with a flow sample updates
+     the deform MLP otherwise than one without; then `cli train
+     --resume` for 40 main-stage steps (lambda_optical 0.1, the
+     motion-mask term off): a flow sample in every step, one K1 and one
+     K2 launch per step and none of K3/K4, finite losses and a finite
+     checkpoint; prints rasterize_3dgs's forward and forward-plus-
+     backward times and the chunks it walks, a main-stage step's time
+     with and without the flow term and their peak memory, and the CLI
+     steps' times.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
@@ -106,6 +123,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1223,6 +1241,7 @@ CLI_MESH = ["--max_times", "1"]     # at the CLI's default voxel, 0.004
 CLI_START = 8001        # the checkpoint's main-stage iteration
 CLI_STEPS = 40          # main-stage steps of `cli train --resume`
 N_TEST = 4
+FRAME_NAME = "{k:03d}"  # the D-NeRF frames' names
 
 
 def run_cli(argv) -> dict:
@@ -1240,7 +1259,8 @@ def write_scene(root, gauss, nodes, deform_cfg, dev):
     """The phase-3 scene rendered through K1 at 800x800 from 8 orbit
     cameras x 4 times (train) and 4 cameras between them (test), written
     as a D-NeRF scene: RGBA PNGs (colour un-premultiplied, alpha the
-    render's accumulated alpha) and transforms_{train,test}.json."""
+    render's accumulated alpha) and transforms_{train,test}.json; frame
+    k is named ``{k:03d}``, so phase 8's flow files can name it."""
     from d2dgs_torch.config import RasterConfig
     from d2dgs_torch.data.cameras import orbit_camera
     from d2dgs_torch.data.synthetic import video_cameras, write_dnerf_scene
@@ -1258,7 +1278,8 @@ def write_scene(root, gauss, nodes, deform_cfg, dev):
         rgb = torch.where(a > 0, out.image / torch.clamp_min(a, 1e-6), 0.0)
         return torch.cat([rgb, a], -1).clamp(0, 1).cpu().numpy()
     write_dnerf_scene(str(root), {"train": [(c, rgba(c)) for c in train],
-                                  "test": [(c, rgba(c)) for c in test]})
+                                  "test": [(c, rgba(c)) for c in test]},
+                      name=FRAME_NAME)
     return len(train), len(test)
 
 
@@ -1341,93 +1362,90 @@ def check_checkpoint_roundtrip(ckpt_path, scene_dir, dev):
     return len(a.files)
 
 
-def phase_6(dev, card) -> dict:
+def phase_6(dev, card, tmp: Path) -> dict:
     """train --resume, render (test and time), mesh through the CLI on a
-    D-NeRF scene of the phase-3 scene, at full width."""
-    import tempfile
-
+    D-NeRF scene of the phase-3 scene, at full width; the scene and the
+    start checkpoint stay in ``tmp`` for phase 8."""
     from d2dgs_torch import native
     t_start = time.time()
     gauss, nodes, deform_cfg = full_scene(dev)
-    with tempfile.TemporaryDirectory(prefix="d2dgs_phase6_") as tmp:
-        tmp = Path(tmp)
-        scene, model = tmp / "scene", tmp / "model"
-        n_train, n_test = write_scene(scene, gauss, nodes, deform_cfg, dev)
-        start_ckpt = tmp / "start.npz"
-        cfg = write_checkpoint(start_ckpt, scene, gauss, nodes, dev)
-        del gauss, nodes
-        torch.cuda.empty_cache()
-        log(f"[phase 6] D-NeRF scene ({n_train} train, {n_test} test views "
-            f"at {CLI_SIZE}x{CLI_SIZE}) and the start checkpoint written in "
-            f"{time.time() - t_start:.1f} s")
-        common = ["-s", str(scene), "-m", str(model), *CLI_FLAGS]
-        reset_counts()
-        t0 = time.time()
-        run_cli(["render", *common, "--ckpt", str(start_ckpt)])
-        with open(model / "results.json") as fh:
-            before = json.load(fh)
-        # the main stage runs iterations 1 .. --iterations + 1
-        last = CLI_START + CLI_STEPS - 1
-        # each step timed between two device synchronisations
-        step_ms = run_cli(["train", *common, "--resume", str(start_ckpt),
-                           "--iterations", str(last - 1),
-                           "--test_iterations", str(last),
-                           "--save_iterations", str(last), "--log_every",
-                           "10"])["step_ms"]
-        view_ms = run_cli(["render", "-s", str(scene), "-m",
-                           str(model)])["view_ms"]
-        with open(model / "results.json") as fh:
-            after = json.load(fh)
-        meshes = run_cli(["mesh", "-s", str(scene), "-m", str(model),
-                          *CLI_MESH])["meshes"]
-        counts = launch_counts()
-        t1 = time.time()
-        proc = subprocess.run(
-            [sys.executable, "-m", "d2dgs_torch.cli", "render", "-s",
-             str(scene), "-m", str(model), "--mode", "time", "--n_frames",
-             "8"], cwd=ROOT, capture_output=True, text=True, timeout=600)
-        log(proc.stdout.strip())
-        if proc.returncode != 0:
-            raise AssertionError(f"python -m d2dgs_torch.cli render --mode "
-                                 f"time exited {proc.returncode}:\n"
-                                 f"{proc.stderr[-3000:]}")
-        sub_s = time.time() - t1
-        cli_s = time.time() - t0
+    scene, model = tmp / "scene", tmp / "model"
+    n_train, n_test = write_scene(scene, gauss, nodes, deform_cfg, dev)
+    start_ckpt = tmp / "start.npz"
+    cfg = write_checkpoint(start_ckpt, scene, gauss, nodes, dev)
+    del gauss, nodes
+    torch.cuda.empty_cache()
+    log(f"[phase 6] D-NeRF scene ({n_train} train, {n_test} test views "
+        f"at {CLI_SIZE}x{CLI_SIZE}) and the start checkpoint written in "
+        f"{time.time() - t_start:.1f} s")
+    common = ["-s", str(scene), "-m", str(model), *CLI_FLAGS]
+    reset_counts()
+    t0 = time.time()
+    run_cli(["render", *common, "--ckpt", str(start_ckpt)])
+    with open(model / "results.json") as fh:
+        before = json.load(fh)
+    # the main stage runs iterations 1 .. --iterations + 1
+    last = CLI_START + CLI_STEPS - 1
+    # each step timed between two device synchronisations
+    step_ms = run_cli(["train", *common, "--resume", str(start_ckpt),
+                       "--iterations", str(last - 1),
+                       "--test_iterations", str(last),
+                       "--save_iterations", str(last), "--log_every",
+                       "10"])["step_ms"]
+    view_ms = run_cli(["render", "-s", str(scene), "-m",
+                       str(model)])["view_ms"]
+    with open(model / "results.json") as fh:
+        after = json.load(fh)
+    meshes = run_cli(["mesh", "-s", str(scene), "-m", str(model),
+                      *CLI_MESH])["meshes"]
+    counts = launch_counts()
+    t1 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "d2dgs_torch.cli", "render", "-s",
+         str(scene), "-m", str(model), "--mode", "time", "--n_frames",
+         "8"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    log(proc.stdout.strip())
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m d2dgs_torch.cli render --mode "
+                             f"time exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    sub_s = time.time() - t1
+    cli_s = time.time() - t0
 
-        # ---- checks ----
-        files = ["cfg_args.json", "ckpt.npz", "ckpt_best.npz",
-                 "results.json", f"point_cloud/iteration_{last}/"
-                 f"point_cloud.ply", f"training_renders/iter_{last}/"
-                 f"view_00.png", "test/renders/renders/00003.png",
-                 "test/renders/depth/00003.png", "time/video.gif",
-                 "time/00007.png", "mesh/mesh_0000.ply"]
-        missing = [f for f in files if not (model / f).exists()]
-        if missing:
-            raise AssertionError(f"phase 6: missing {missing}")
-        keys = {"psnr", "ssim", "ms_ssim", "lpips_rand"}
-        if set(after) != keys or set(before) != keys:
-            raise AssertionError(f"results.json keys {sorted(after)}")
-        if not after["psnr"] >= before["psnr"] - 1.0:
-            raise AssertionError(f"test PSNR {before['psnr']:.3f} -> "
-                                 f"{after['psnr']:.3f} after training")
-        n_ply = check_ply_matches(
-            model / f"point_cloud/iteration_{last}/point_cloud.ply",
-            model / "ckpt.npz", cfg, dev)
-        n_keys = check_checkpoint_roundtrip(model / "ckpt.npz", scene, dev)
-        if len(meshes) != 1 or meshes[0]["faces"] == 0:
-            raise AssertionError(f"phase 6: empty mesh ({meshes})")
-        if len(step_ms) != CLI_STEPS:
-            raise AssertionError(f"{len(step_ms)} train steps, expected "
-                                 f"{CLI_STEPS}")
-        for k in ("blend_fwd", "blend_bwd"):
-            if counts[k] == 0:
-                raise AssertionError(f"phase 6: {k} not launched")
-        if counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
-            raise AssertionError(f"phase 6 launched the dense route: "
-                                 f"{counts}")
-        if not native.available():
-            raise AssertionError("phase 6: the native mesh library did not "
-                                 "load")
+    # ---- checks ----
+    files = ["cfg_args.json", "ckpt.npz", "ckpt_best.npz",
+             "results.json", f"point_cloud/iteration_{last}/"
+             f"point_cloud.ply", f"training_renders/iter_{last}/"
+             f"view_00.png", "test/renders/renders/00003.png",
+             "test/renders/depth/00003.png", "time/video.gif",
+             "time/00007.png", "mesh/mesh_0000.ply"]
+    missing = [f for f in files if not (model / f).exists()]
+    if missing:
+        raise AssertionError(f"phase 6: missing {missing}")
+    keys = {"psnr", "ssim", "ms_ssim", "lpips_rand"}
+    if set(after) != keys or set(before) != keys:
+        raise AssertionError(f"results.json keys {sorted(after)}")
+    if not after["psnr"] >= before["psnr"] - 1.0:
+        raise AssertionError(f"test PSNR {before['psnr']:.3f} -> "
+                             f"{after['psnr']:.3f} after training")
+    n_ply = check_ply_matches(
+        model / f"point_cloud/iteration_{last}/point_cloud.ply",
+        model / "ckpt.npz", cfg, dev)
+    n_keys = check_checkpoint_roundtrip(model / "ckpt.npz", scene, dev)
+    if len(meshes) != 1 or meshes[0]["faces"] == 0:
+        raise AssertionError(f"phase 6: empty mesh ({meshes})")
+    if len(step_ms) != CLI_STEPS:
+        raise AssertionError(f"{len(step_ms)} train steps, expected "
+                             f"{CLI_STEPS}")
+    for k in ("blend_fwd", "blend_bwd"):
+        if counts[k] == 0:
+            raise AssertionError(f"phase 6: {k} not launched")
+    if counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
+        raise AssertionError(f"phase 6 launched the dense route: "
+                             f"{counts}")
+    if not native.available():
+        raise AssertionError("phase 6: the native mesh library did not "
+                             "load")
     res = {"launches": counts, "before": before, "after": after,
            "step_ms": step_ms, "view_ms": view_ms,
            "train_step_ms": float(np.mean(step_ms[1:])),
@@ -1439,7 +1457,8 @@ def phase_6(dev, card) -> dict:
            "integrate_ms": meshes[0]["integrate_ms"],
            "integrate_views": meshes[0]["views"],
            "extract_ms": meshes[0]["extract_ms"], "ply_rows": n_ply,
-           "ckpt_arrays": n_keys, "subprocess_s": sub_s, "cli_s": cli_s}
+           "ckpt_arrays": n_keys, "subprocess_s": sub_s, "cli_s": cli_s,
+           "scene": scene, "start_ckpt": start_ckpt, "cfg": cfg}
     log(f"[phase 6] cli train --resume: {CLI_STEPS} main-stage steps, "
         f"{res['train_step_ms']:.2f} ms per step (mean of steps 2-"
         f"{CLI_STEPS}, each between two device synchronisations; median "
@@ -1776,6 +1795,315 @@ def phase_7(dev, card) -> dict:
             "mesh_shape_ms": renders["mesh_shape_render"]["ms"]}
 
 
+# ----------------------------------------------------------------------
+# phase 8: the optical-flow training path on phase 6's D-NeRF scene with
+# RAFT-format flow files: one per training view, toward the same camera
+# at the next time (the last time toward the one before, so every view
+# has one), every fourth at FLOW_SMALL x FLOW_SMALL; `cli train --resume`
+# from phase 6's start checkpoint, where lambda_optical is 0.1
+
+FLOW_SMALL = 400        # the size of every fourth flow file
+FLOW_STEPS = 40         # main-stage steps of `cli train --resume`
+N_TIMES = 4             # the scene's times per camera (write_scene)
+# the CPU parity tolerances of the 3DGS rasterizer
+# (tests/test_torch_raster3d.py): image and alpha, depth
+FLOW_IMG_TOL, FLOW_DEPTH_TOL = 2e-5, 2e-4
+CROP_TILES = 16         # the CPU check's crop, in tiles a side
+MIN_SOLID = 10_000      # pixels of the self-check's view with alpha > 0.9
+
+
+def flow_target(k: int) -> int:
+    """The training frame that frame k's flow file points at."""
+    return k + 1 if k % N_TIMES < N_TIMES - 1 else k - 1
+
+
+def scene_flow(gauss, nodes, deform_cfg, cam1, cam2, cfg, step):
+    """``render_flow`` of the scene between cam1's and cam2's times, with
+    the deformation ``optical_flow_loss`` gives it."""
+    from d2dgs_torch.models.deform import deform_gaussians
+    from d2dgs_torch.render.renderer import render_flow
+    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss.xyz, c.time,
+                               feature=gauss.feature,
+                               motion_mask=gauss.motion_mask, step=step)
+              for c in (cam1, cam2))
+    return render_flow(gauss, cam1, cam2, d1["d_xyz"], d2["d_xyz"],
+                       d_rotation1=d1["d_rotation"],
+                       d_scaling1=d1["d_scaling"], cfg=cfg)
+
+
+@torch.no_grad()
+def flow_raster_inputs(gauss, nodes, deform_cfg, cam1, cam2, step) -> list:
+    """The five inputs ``render_flow`` hands ``rasterize_3dgs`` for the
+    flow from cam1's time to cam2's (means, scales, quaternions,
+    opacities, the uv flow and the motion mask), detached."""
+    from d2dgs_torch.models.deform import deform_gaussians
+    from d2dgs_torch.render.renderer import _full_proj_uvz
+    from d2dgs_torch.utils.quaternion import quat_normalize
+    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss.xyz, c.time,
+                               feature=gauss.feature,
+                               motion_mask=gauss.motion_mask, step=step)
+              for c in (cam1, cam2))
+    uv = (_full_proj_uvz(gauss.xyz + d2["d_xyz"], cam2)
+          - _full_proj_uvz(gauss.xyz + d1["d_xyz"], cam1))[:, :2]
+    return [gauss.xyz + d1["d_xyz"], gauss.get_scaling + d1["d_scaling"],
+            quat_normalize(gauss.rotation + d1["d_rotation"], eps=1e-12),
+            torch.where(gauss.alive, gauss.get_opacity[:, 0], 0.0),
+            torch.cat([uv, gauss.motion_mask], -1)]
+
+
+@torch.no_grad()
+def write_flow_files(scene, gauss, nodes, deform_cfg, cams, cfg) -> dict:
+    """RAFT-format files from the port's own flow renders of the
+    unperturbed scene, in pixels (x [W/2, H/2], the inverse of
+    ``load_flow``'s normalisation); the masks mark the pixels the render
+    covers (alpha > 0.5); every fourth file is pooled to FLOW_SMALL (its
+    values scaled with the size) and has no mask file."""
+    from d2dgs_torch.data.synthetic import write_flow_file
+    paths = {}
+    for k, cam in enumerate(cams):
+        j = flow_target(k)
+        f = scene_flow(gauss, nodes, deform_cfg, cam, cams[j], cfg,
+                       CLI_START)
+        px = f["render"][..., :2] * torch.tensor(
+            [cam.W / 2.0, cam.H / 2.0], device=cam.device)
+        mask = (f["alpha"] > 0.5).expand(-1, -1, 2)
+        if k % 4 == 3:
+            s = cam.W // FLOW_SMALL
+            px = torch.nn.functional.avg_pool2d(
+                px.permute(2, 0, 1)[None], s)[0].permute(1, 2, 0) / s
+            mask = None
+        paths[k] = write_flow_file(
+            str(scene), FRAME_NAME.format(k=k), FRAME_NAME.format(k=j),
+            px.cpu().numpy(),
+            None if mask is None else mask.cpu().numpy())
+    return paths
+
+
+def flow_crop_check(dev, inputs, cam, cfg) -> dict:
+    """``rasterize_3dgs`` at full width on the card against the same call
+    on the CPU over the CROP_TILES x CROP_TILES tiles around the splats'
+    median centre: the CPU call gets the splats whose tile rect meets the
+    crop (every pair of the crop's tiles; the others only change pixels
+    outside it)."""
+    from d2dgs_torch.ops.raster3d import preprocess3d, rasterize_3dgs
+    from d2dgs_torch.ops.projection import tile_grid
+    means, scales, quats, opac, colors = inputs
+    with torch.no_grad():
+        img, radii, depth, alpha = rasterize_3dgs(*inputs, cam, cfg=cfg)
+        prep = preprocess3d(means, scales, quats, cam)
+    gx, gy = tile_grid(cam.H, cam.W)
+    cx = min(max(int(prep.center[prep.valid, 0].median()) // 16
+                 - CROP_TILES // 2, 0), gx - CROP_TILES)
+    cy = min(max(int(prep.center[prep.valid, 1].median()) // 16
+                 - CROP_TILES // 2, 0), gy - CROP_TILES)
+    lo = torch.tensor([cx, cy], device=dev)
+    hi = lo + CROP_TILES
+    sel = (prep.valid & (prep.rect_min < hi).all(-1)
+           & (prep.rect_max > lo).all(-1))
+    cpu_cam = dataclasses.replace(
+        cam, **{f: getattr(cam, f).cpu()
+                for f in ("w2c", "cam_center", "fx", "fy", "time")})
+    t0 = time.time()
+    with torch.no_grad():
+        c_img, c_radii, c_depth, c_alpha = rasterize_3dgs(
+            *(a[sel].cpu() for a in inputs), cpu_cam, cfg=cfg)
+    cpu_s = time.time() - t0
+    ys = slice(cy * 16, min((cy + CROP_TILES) * 16, cam.H))
+    xs = slice(cx * 16, min((cx + CROP_TILES) * 16, cam.W))
+    err = {"image": float((img[ys, xs].cpu() - c_img[ys, xs]).abs().max()),
+           "alpha": float((alpha[ys, xs].cpu()
+                           - c_alpha[ys, xs]).abs().max()),
+           "depth": float((depth[ys, xs].cpu()
+                           - c_depth[ys, xs]).abs().max())}
+    if not torch.equal(radii[sel].cpu(), c_radii):
+        raise AssertionError("phase 8: rasterize_3dgs radii differ between "
+                             "the card and the CPU")
+    if (err["image"] > FLOW_IMG_TOL or err["alpha"] > FLOW_IMG_TOL
+            or err["depth"] > FLOW_DEPTH_TOL):
+        raise AssertionError(f"phase 8: rasterize_3dgs on the card against "
+                             f"the CPU on the crop: {err}")
+    if float(c_alpha[ys, xs].max()) <= 0.5:
+        raise AssertionError("phase 8: the CPU check's crop is empty")
+    return dict(err, splats=int(sel.sum()), crop_tile=[cx, cy],
+                cpu_s=cpu_s)
+
+
+def phase_8(dev, card, res6) -> dict:
+    """The optical-flow training path at full width, through the CLI."""
+    from d2dgs_torch import cli
+    from d2dgs_torch.data.flow import load_flow
+    from d2dgs_torch.io.checkpoint import load_train_state
+    from d2dgs_torch.ops import raster3d
+    from d2dgs_torch.train.trainer import (init_train_state,
+                                           main_stage_step, mlp_trainable,
+                                           optical_flow_loss)
+    t_start = time.time()
+    scene, start_ckpt, cfg = res6["scene"], res6["start_ckpt"], res6["cfg"]
+    gauss, nodes, deform_cfg = full_scene(dev)
+    if cfg.node_cfg != deform_cfg.node:
+        raise AssertionError("the scene's nodes are not the CLI's")
+    args = cli._base_parser("train", True).parse_args(
+        ["-s", str(scene), "-m", "unused", *CLI_FLAGS])
+    info = cli._load_scene(args, dev)
+    cams = [s.camera for s in info.train_cameras]
+    paths = write_flow_files(scene, gauss, nodes, deform_cfg, cams,
+                             cfg.raster)
+    n_small = sum(np.load(p, mmap_mode="r").shape[0] == FLOW_SMALL
+                  for p in paths.values())
+    log(f"[phase 8] {len(paths)} flow files ({n_small} at {FLOW_SMALL}x"
+        f"{FLOW_SMALL}) written in {time.time() - t_start:.1f} s")
+
+    # ---- the flow term of the unperturbed scene against its own target
+    k = 1
+    cam1, cam2 = cams[k], cams[flow_target(k)]
+    flow, mask = load_flow(paths[k], cam1.H, cam1.W)
+    gt = torch.as_tensor(info.train_cameras[k].gt(np.zeros(3, np.float32)),
+                         device=dev)
+    pw = float(np.clip(np.cos(abs(float(cam1.time) - float(cam2.time))
+                              * np.pi / 2.0), 0.2, 1.0))
+    with torch.no_grad():
+        self_term = float(optical_flow_loss(
+            gauss, nodes, cam1, cam2, torch.as_tensor(flow, device=dev),
+            torch.as_tensor(mask, device=dev), pw, gt, gt, cfg,
+            {"step": CLI_START}))
+        solid = int((scene_flow(gauss, nodes, deform_cfg, cam1, cam2,
+                                cfg.raster, CLI_START)["alpha"] > 0.9).sum())
+    if not self_term < 1e-6 or solid < MIN_SOLID:
+        raise AssertionError(f"phase 8: flow term against its own target "
+                             f"{self_term} on {solid} solid pixels")
+
+    # ---- rasterize_3dgs: the card against the CPU, and timed
+    inputs = flow_raster_inputs(gauss, nodes, deform_cfg, cam1, cam2,
+                                CLI_START)
+    crop = flow_crop_check(dev, inputs, cam1, cfg.raster)
+    raster3d.WALK_COUNTS.update(renders=0, chunks=0)
+    fwd_ms = cuda_ms(lambda: raster3d.rasterize_3dgs(*inputs, cam1,
+                                                      cfg=cfg.raster),
+                     reps=5)
+    chunks_one = raster3d.WALK_COUNTS["chunks"] // raster3d.WALK_COUNTS[
+        "renders"]
+    xs = [a.clone().requires_grad_(True) for a in inputs]
+    w = torch.rand((cam1.H, cam1.W, 5), device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(3))
+
+    def fwd_bwd():
+        img, _, depth, alpha = raster3d.rasterize_3dgs(*xs, cam1,
+                                                        cfg=cfg.raster)
+        torch.autograd.grad(torch.sum(torch.cat([img, depth, alpha], -1)
+                                      * w), xs)
+    fwd_bwd_ms = cuda_ms(fwd_bwd, reps=5)
+    del xs
+    log(f"[phase 8] rasterize_3dgs at {cam1.H}x{cam1.W} ({card}): forward "
+        f"{fwd_ms:.2f} ms, forward + backward {fwd_bwd_ms:.2f} ms, "
+        f"{chunks_one} chunks of {cfg.raster.chunk} pairs walked; the card "
+        f"against the CPU on {CROP_TILES}x{CROP_TILES} tiles "
+        f"({crop['splats']} splats): max |d image| {crop['image']:.3g}, "
+        f"|d alpha| {crop['alpha']:.3g}, |d depth| {crop['depth']:.3g}, "
+        f"radii equal")
+
+    # ---- one main-stage step with and without the flow term
+    def start_state():
+        template = init_train_state(cfg, *cli._init_points(info, cfg, 0),
+                                    device=dev)
+        return load_train_state(str(start_ckpt), template)[0]
+    sched = dict(phase4_schedules(cfg, 1)[0], step=CLI_START,
+                 lambda_optical=0.1)
+    sample = (cam2, torch.as_tensor(flow, device=dev),
+              torch.as_tensor(mask, device=dev), pw)
+    cam_gt = (cam1, gt)
+    step_ms, mlps, peak = {}, {}, {}
+    for flow_loss in (False, True):
+        state = start_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, _ = main_stage_step(state, *cam_gt, cfg, sched,
+                                   flow_sample=sample, flow_loss=flow_loss)
+        end.record()
+        torch.cuda.synchronize()
+        peak[flow_loss] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        mlps[flow_loss] = {k: v.detach().clone()
+                           for k, v in mlp_trainable(state.nodes).items()}
+        # a warmed-up time of each, state by state
+        step_ms[flow_loss] = cuda_ms(lambda: main_stage_step(
+            state, *cam_gt, cfg, sched, flow_sample=sample,
+            flow_loss=flow_loss), reps=3)
+        del state
+    diff = sum(float((mlps[True][k] - mlps[False][k]).abs().sum())
+               for k in mlps[True])
+    if not diff > 0.0:
+        raise AssertionError("phase 8: the flow term did not change the "
+                             "deform MLP's update")
+    del gauss, nodes, inputs, mlps
+    torch.cuda.empty_cache()
+    log(f"[phase 8] main-stage step ({card}): {step_ms[False]:.2f} ms "
+        f"without the flow term, {step_ms[True]:.2f} ms with it; peak "
+        f"memory above the state {peak[False]:.2f} / {peak[True]:.2f} GB; "
+        f"the flow term moved the deform MLP's update by {diff:.4g} "
+        f"(sum of |d|)")
+
+    # ---- cli train --resume with the flow files
+    model = scene.parent / "model_flow"
+    last = CLI_START + FLOW_STEPS - 1
+    reset_counts()
+    raster3d.WALK_COUNTS.update(renders=0, chunks=0)
+    t0 = time.time()
+    # the motion-mask term off, so each step renders once through K1
+    rep = run_cli(["train", "-s", str(scene), "-m", str(model), *CLI_FLAGS,
+                   "--no_motion_mask_loss",
+                   "--resume", str(start_ckpt), "--iterations",
+                   str(last - 1), "--test_iterations", "-1",
+                   "--save_iterations", "-1", "--log_every", "10"])
+    cli_s = time.time() - t0
+    counts = launch_counts()
+    walk = dict(raster3d.WALK_COUNTS)
+    if len(rep["step_ms"]) != FLOW_STEPS or rep["flow_steps"] != FLOW_STEPS:
+        raise AssertionError(f"phase 8: {len(rep['step_ms'])} steps, "
+                             f"{rep['flow_steps']} with a flow sample; "
+                             f"expected {FLOW_STEPS} of each")
+    if (counts["blend_fwd"], counts["blend_bwd"]) != (FLOW_STEPS,
+                                                      FLOW_STEPS) or \
+            counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
+        raise AssertionError(f"phase 8 launches {counts}: expected one K1 "
+                             f"and one K2 per step, no K3/K4")
+    if walk["renders"] != FLOW_STEPS:
+        raise AssertionError(f"phase 8: {walk['renders']} flow renders in "
+                             f"{FLOW_STEPS} steps")
+    if not all(np.isfinite(rep["loss"])):
+        raise AssertionError(f"phase 8: non-finite loss {rep['loss']}")
+    with np.load(model / "ckpt.npz") as z:
+        bad = [k for k in z.files if z[k].dtype.kind == "f"
+               and not np.isfinite(z[k]).all()]
+    if bad:
+        raise AssertionError(f"phase 8: non-finite {bad[:5]} after training")
+    res = {"launches": counts, "step_ms": rep["step_ms"],
+           "flow_step_ms": float(np.mean(rep["step_ms"][1:])),
+           "flow_step_ms_median": float(np.median(rep["step_ms"][1:])),
+           "l1": rep["loss"], "self_term": self_term, "solid_px": solid,
+           "crop": crop, "raster3d_fwd_ms": fwd_ms,
+           "raster3d_fwd_bwd_ms": fwd_bwd_ms,
+           "chunks_per_render": walk["chunks"] / walk["renders"],
+           "chunks_one_view": chunks_one,
+           "step_ms_no_flow": step_ms[False], "step_ms_flow": step_ms[True],
+           "peak_gb_no_flow": peak[False], "peak_gb_flow": peak[True],
+           "mlp_update_diff": diff, "flow_files": len(paths),
+           "flow_files_small": n_small, "cli_s": cli_s}
+    log(f"[phase 8] cli train --resume with {len(paths)} flow files: "
+        f"{FLOW_STEPS} steps, every one with the flow term; "
+        f"{res['flow_step_ms']:.2f} ms per step (mean of steps 2-"
+        f"{FLOW_STEPS}, median {res['flow_step_ms_median']:.2f}; phase 6 "
+        f"without flow files {res6['train_step_ms']:.2f}) ({card}); "
+        f"{res['chunks_per_render']:.2f} chunks walked per flow render; L1 "
+        f"{rep['loss'][0]:.5f} -> {rep['loss'][-1]:.5f}; launches {counts}; "
+        f"flow term of the unperturbed scene against its own target "
+        f"{self_term:.3g} ({solid} solid pixels); phase 8 "
+        f"{time.time() - t_start:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2104,21 +2432,27 @@ def main() -> int:
     res5b = phase_5b(dev, card)
     torch.cuda.empty_cache()
 
-    # ---- phase 6: the command line, train -> render -> mesh ----
-    res6 = phase_6(dev, card)
-    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="d2dgs_cli_") as tmp:
+        # ---- phase 6: the command line, train -> render -> mesh ----
+        res6 = phase_6(dev, card, Path(tmp))
+        torch.cuda.empty_cache()
 
-    # ---- phase 7: the geometry path on the articulated figure ----
-    res7 = phase_7(dev, card)
-    fwd_checks.update(res7["fwd_checks"])
-    bwd_checks.update(res7["bwd_checks"])
+        # ---- phase 7: the geometry path on the articulated figure ----
+        res7 = phase_7(dev, card)
+        fwd_checks.update(res7["fwd_checks"])
+        bwd_checks.update(res7["bwd_checks"])
+        torch.cuda.empty_cache()
+
+        # ---- phase 8: the optical-flow training path, through the CLI --
+        res8 = phase_8(dev, card, res6)
     paths = {"serve": serve_launches, "train": train_launches,
              "trainer": res5b["launches"], "cli": res6["launches"],
-             "geometry": res7["launches"]}
+             "geometry": res7["launches"], "flow": res8["launches"]}
     needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
               "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
               "cli": ("blend_fwd", "blend_bwd"),
-              "geometry": ("blend_fwd", "blend_bwd")}
+              "geometry": ("blend_fwd", "blend_bwd"),
+              "flow": ("blend_fwd", "blend_bwd")}
     for path, names in needed.items():
         for k in names:
             if paths[path][k] == 0:
@@ -2133,7 +2467,7 @@ def main() -> int:
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
         "launches": serve_launches["blend_fwd"]
         + train_launches["blend_fwd"] + res6["launches"]["blend_fwd"]
-        + res7["launches"]["blend_fwd"],
+        + res7["launches"]["blend_fwd"] + res8["launches"]["blend_fwd"],
         "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], **flip_fields(fwd_checks),
@@ -2152,7 +2486,8 @@ def main() -> int:
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
         "launches": train_launches["blend_bwd"]
-        + res6["launches"]["blend_bwd"] + res7["launches"]["blend_bwd"],
+        + res6["launches"]["blend_bwd"] + res7["launches"]["blend_bwd"]
+        + res8["launches"]["blend_bwd"],
         "launches_by_path": by_path("blend_bwd"),
         "max_abs_err": res_k2["max_abs_err"],
         "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
@@ -2168,7 +2503,12 @@ def main() -> int:
         "walk_histogram": hist_t,
         "step_ms": step_ms, "train_stages_ms": train_stages,
         "l1": l1s, "cli_step_ms": res6["train_step_ms"],
-        "geometry_step_ms": res7["main_step_ms"]}, {
+        "geometry_step_ms": res7["main_step_ms"],
+        "flow_path": {k: res8[k] for k in (
+            "flow_step_ms", "flow_step_ms_median", "step_ms_no_flow",
+            "step_ms_flow", "peak_gb_no_flow", "peak_gb_flow",
+            "raster3d_fwd_ms", "raster3d_fwd_bwd_ms", "chunks_per_render",
+            "chunks_one_view", "self_term", "crop")}}, {
         "name": "blend_dense_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:411",

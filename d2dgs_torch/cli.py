@@ -15,13 +15,15 @@ command line asks for the CPU.
 
 ``main(argv, report)`` fills an optional ``report`` dict with the
 command's measurements (train step times taken with a device
-synchronisation around each step, ms per test view, the mesh grid and
+synchronisation around each step, each step's L1, the count of steps
+with the optical-flow term, ms per test view, the mesh grid and
 its fusion and extraction times, and with ``mesh --render_meshes`` the
 two mesh renders' times) for callers that time the CLI.
 
-Not ported yet, each raising NotImplementedError: ``edit``,
-``train --mesh_shape`` / ``--exchange_cap`` and a scene with RAFT flow
-files (the optical-flow loss).
+``train`` on a scene with RAFT flow files (``raft_neighbouring/``) adds
+the optical-flow loss, as the JAX CLI does.  Not ported yet, each raising
+NotImplementedError: ``edit`` and ``train --mesh_shape`` /
+``--exchange_cap``.
 """
 from __future__ import annotations
 
@@ -228,10 +230,6 @@ def cmd_train(argv, report=None) -> int:
     cfg = config_from_args(args)
     save_cfg_args(args.model_path, args)
     info = _load_scene(args, dev)
-    if any(find_flow_dirs(args.source_path, info.train_cameras)):
-        raise NotImplementedError(
-            f"{args.source_path} has RAFT flow files (raft_neighbouring/): "
-            f"the optical-flow loss is not ported yet (ROADMAP.md)")
 
     bg = np.full(3, 1.0 if cfg.white_background else 0.0, np.float32)
     cams = [s.camera for s in info.train_cameras]
@@ -252,9 +250,15 @@ def cmd_train(argv, report=None) -> int:
                     writer.add_scalar(f"train/{k}", v, m.get("iter", 0))
 
     pts, cols = _init_points(info, cfg, args.seed)
+    # RAFT flow files enable the optical-flow loss when present
+    flow_dirs = find_flow_dirs(args.source_path, info.train_cameras)
+    has_flow = any(flow_dirs)
     tr = Trainer(cfg, cams, gts, pts, cols,
                  cameras_extent=info.cameras_extent, seed=args.seed,
                  log_fn=log_fn, alphas=[s.alpha for s in info.train_cameras],
+                 flow_dirs=flow_dirs if has_flow else None,
+                 image_names=[s.image_name for s in info.train_cameras]
+                 if has_flow else None,
                  device=dev)
     if args.resume:
         tr.state, tr.iteration, tr.iteration_node = load_train_state(
@@ -288,6 +292,10 @@ def cmd_train(argv, report=None) -> int:
             _sync(dev)
             report.setdefault("step_ms", []).append(
                 (time.perf_counter() - t_step) * 1e3)
+            report["flow_steps"] = (report.get("flow_steps", 0)
+                                    + int("lambda_optical" in m))
+            if m:
+                report.setdefault("loss", []).append(float(m["loss"]))
         it = tr.iteration - 1
         tick = tr.iteration_node + tr.iteration - 2
         if m and tick % args.log_every == 0:

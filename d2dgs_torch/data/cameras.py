@@ -40,6 +40,14 @@ class Camera:
         return self.H / 2.0
 
     @property
+    def tan_fovx(self):
+        return self.W / (2.0 * self.fx)
+
+    @property
+    def tan_fovy(self):
+        return self.H / (2.0 * self.fy)
+
+    @property
     def K(self) -> torch.Tensor:
         z = torch.zeros((), dtype=torch.float32, device=self.device)
         o = torch.ones((), dtype=torch.float32, device=self.device)

@@ -155,11 +155,15 @@ def single_facing_gaussian(cam: Camera, depth: float = 4.0,
             f32([opacity]), f32([[0.2, 0.5, 0.9]]))
 
 
-def write_dnerf_scene(root: str, splits: dict) -> None:
+def write_dnerf_scene(root: str, splits: dict, name: str = "r_{k}") -> None:
     """Write a D-NeRF-format scene that ``data/dnerf.load_scene`` reads:
     ``splits`` maps "train"/"test" to lists of (Camera, [H,W,4] RGBA in
-    [0,1]); each frame becomes ``<split>/r_<k>.png`` with its camera in
-    ``transforms_<split>.json`` (the Blender c2w, OpenGL axes)."""
+    [0,1]); frame k becomes ``<split>/<name.format(k=k)>.png`` with its
+    camera in ``transforms_<split>.json`` (the Blender c2w, OpenGL axes).
+    The reader orders frames by the integer after the last underscore,
+    and a flow file names its target frame by the text after its last
+    underscore (``data/flow.target_name``), so a scene that carries flow
+    files names its frames by the integer alone (``name="{k:03d}"``)."""
     import json
     import os
 
@@ -170,12 +174,37 @@ def write_dnerf_scene(root: str, splits: dict) -> None:
         for k, (cam, rgba) in enumerate(frames):
             c2w = np.linalg.inv(cam.w2c.cpu().numpy().astype(np.float64))
             c2w[:3, 1:3] *= -1                   # OpenCV -> OpenGL axes
+            stem = name.format(k=k)
             Image.fromarray((np.clip(rgba, 0, 1) * 255).round().astype(
-                np.uint8)).save(os.path.join(root, split, f"r_{k}.png"))
-            entries.append({"file_path": f"./{split}/r_{k}",
+                np.uint8)).save(os.path.join(root, split, f"{stem}.png"))
+            entries.append({"file_path": f"./{split}/{stem}",
                             "time": float(cam.time),
                             "transform_matrix": c2w.tolist()})
         cam = frames[0][0]
         fovx = 2 * np.arctan(cam.W / (2 * float(cam.fx)))
         with open(os.path.join(root, f"transforms_{split}.json"), "w") as fh:
             json.dump({"camera_angle_x": float(fovx), "frames": entries}, fh)
+
+
+def write_flow_file(root: str, stem: str, target: str, flow_px: np.ndarray,
+                    mask: np.ndarray | None = None) -> str:
+    """Write one RAFT-format flow file that ``data/flow.load_flow`` reads:
+    ``raft_neighbouring/<stem>.to_<target>.npy`` holding ``flow_px``
+    ([h,w,2] float32 pixel displacements toward frame ``target``) and,
+    with ``mask`` ([h,w,2] in {0,1}: cycle consistency, occlusion),
+    ``raft_masks/<stem>.to_<target>.png``.  Returns the flow file's
+    path."""
+    import os
+
+    from PIL import Image
+    base = f"{stem}.to_{target}"
+    os.makedirs(os.path.join(root, "raft_neighbouring"), exist_ok=True)
+    path = os.path.join(root, "raft_neighbouring", base + ".npy")
+    np.save(path, np.asarray(flow_px, np.float32))
+    if mask is not None:
+        os.makedirs(os.path.join(root, "raft_masks"), exist_ok=True)
+        m = (np.asarray(mask) > 0).astype(np.uint8) * 255
+        rgb = np.concatenate([m, np.zeros_like(m[..., :1])], -1)
+        Image.fromarray(rgb).save(os.path.join(root, "raft_masks",
+                                               base + ".png"))
+    return path

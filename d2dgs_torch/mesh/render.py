@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..data.cameras import Camera
+from ..ops.projection import matmul_fma
 
 _NEAR = 0.01
 FACE_CHUNK = 1 << 15
@@ -58,7 +59,8 @@ def _host(a, dtype):
 
 def _project(cam: Camera, verts: torch.Tensor):
     """world verts [V,3] -> (screen uv [V,2], camera z [V])."""
-    pc = verts @ cam.w2c[:3, :3].T + cam.w2c[:3, 3]
+    pc = (matmul_fma(verts[:, None, :], cam.w2c[:3, :3].T)[:, 0]
+          + cam.w2c[:3, 3])
     z = pc[:, 2]
     zs = torch.where(torch.abs(z) < 1e-8, 1e-8, z)
     u = pc[:, 0] / zs * cam.fx + cam.W / 2.0

@@ -52,6 +52,23 @@ class Binning(NamedTuple):
         return self.order[self.pair_rank.long()]
 
 
+def opacity_radius(radius: torch.Tensor, opacity: torch.Tensor,
+                   sigma: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact visibility radius of the conic (3DGS) blend law.
+
+    A pixel is kept only when alpha = op*exp(-rho/2) >= 1/255, i.e.
+    rho <= 2L with L = ln(255*op); rho >= d^2 / lambda_max, so
+    d <= sigma_max * sqrt(2L).  ``sigma``: sigma_max per splat, by
+    default radius/3 (exact for the 3DGS radius ceil(3*sqrt(lambda_max))).
+    The sqrt(L) term only widens the bound.  0 where op < 1/255."""
+    op = opacity.detach().to(torch.float32)
+    L = torch.clamp_min(torch.log(torch.clamp_min(255.0 * op, 1e-12)), 0.0)
+    sig = (radius.to(torch.float32) / 3.0 if sigma is None
+           else sigma.detach().to(torch.float32))
+    vis = torch.maximum(sig * torch.sqrt(2.0 * L), torch.sqrt(L))
+    return torch.where(op >= 1.0 / 255.0, vis, torch.zeros_like(vis))
+
+
 class VisCircles(NamedTuple):
     """Exact visibility circle of the surfel blend, [N]-shaped in the
     original index space."""
@@ -147,14 +164,16 @@ _CULL_ALL = -1.0   # circle never hits
 
 
 def bin_gaussians(prep: Preprocessed, grid_x: int, grid_y: int,
-                  cfg: RasterConfig, opacity=None,
+                  cfg: RasterConfig, opacity=None, cull_sigma=None,
                   pixel_offset: float = 0.5) -> Binning:
     """Bin splats into per-tile depth-ordered pair lists.
 
     ``opacity`` enables the output-invariant circle cull (see
     ``visibility_circles``); without it every rect tile is kept, as the
-    reference's getRect.  ``pixel_offset``: sample-rect convention of the
-    consuming blend (0.5 = pixel centers)."""
+    reference's getRect.  ``cull_sigma``: per-splat sigma_max ([N]) of
+    the conic (3DGS) law, whose circle ``opacity_radius`` is then exact.
+    ``pixel_offset``: sample-rect convention of the consuming blend
+    (0.5 = pixel centers, 0.0 = corners)."""
     n = prep.depth.shape[0]
     dev = prep.depth.device
     num_tiles = grid_x * grid_y
@@ -164,7 +183,13 @@ def bin_gaussians(prep: Preprocessed, grid_x: int, grid_y: int,
     order = torch.sort(depth_key, stable=True).indices
 
     # per-splat visibility circle as (cx, cy, signed r^2)
-    if cfg.tile_circle_cull and opacity is not None:
+    if cfg.tile_circle_cull and opacity is not None and \
+            cull_sigma is not None:
+        r_bin = opacity_radius(prep.radius, opacity, sigma=cull_sigma)
+        sr2 = torch.where(opacity.detach().to(torch.float32) >= 1.0 / 255.0,
+                          r_bin * r_bin, torch.full_like(r_bin, _CULL_ALL))
+        ccen = prep.center.detach().to(torch.float32)
+    elif cfg.tile_circle_cull and opacity is not None:
         vc = visibility_circles(prep, opacity)
         sr2 = torch.where(vc.cull_all,
                           torch.full_like(vc.radius, _CULL_ALL),

@@ -34,17 +34,30 @@ def tile_grid(H: int, W: int) -> tuple[int, int]:
     return (-(-W // TILE), -(-H // TILE))  # (tiles_x, tiles_y)
 
 
+def matmul_fma(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for a short contracted axis (3 or 4), summed as XLA
+    compiles the JAX package's float32 dots and einsums on the CPU: a
+    fused multiply-add chain ``fma(a2, b2, fma(a1, b1, a0 b0))``.
+    ``addcmul`` fuses its multiply-add on either device; a BLAS GEMM
+    rounds each product and sum apart, 1 ulp off in about a third of the
+    entries."""
+    out = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        out = torch.addcmul(out, A[..., :, k:k + 1], B[..., k:k + 1, :])
+    return out
+
+
 def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
                quats: torch.Tensor, cam: Camera,
                scale_modifier: float = 1.0) -> Preprocessed:
     """means3d [N,3], scales [N,2] (linear, post-activation), quats [N,4]."""
     Rw = cam.w2c[:3, :3]
     tw = cam.w2c[:3, 3]
-    p_view = means3d @ Rw.T + tw                       # [N,3]
+    p_view = matmul_fma(means3d[:, None, :], Rw.T)[:, 0] + tw   # [N,3]
     in_front = p_view[:, 2] > NEAR_PLANE
 
     R = quat_to_rotmat(quats)                          # [N,3,3]
-    WR = torch.matmul(Rw, R)                           # [N,3,3]
+    WR = matmul_fma(Rw, R)                             # [N,3,3]
     s = scales * scale_modifier
     M0 = WR[:, :, 0] * s[:, 0:1]                       # tangent axis u
     M1 = WR[:, :, 1] * s[:, 1:2]                       # tangent axis v
@@ -57,7 +70,7 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
 
     # splat-to-screen homogeneous transform: rows (Tu, Tv, Tw)
     Smat = torch.stack([M0, M1, p_view], dim=-1)       # [N,3,3] columns
-    T = torch.matmul(cam.K, Smat)
+    T = matmul_fma(cam.K, Smat)
     Tu, Tv, Tw = T[:, 0, :], T[:, 1, :], T[:, 2, :]
 
     # AABB from T (forward.cu:133-163)

@@ -8,6 +8,10 @@ hand-written kernels (the work-queue or the dense route, as
 ``RasterConfig.use_workqueue`` says), CPU tensors through their plain
 versions.
 
+``render_flow`` renders the optical-flow term's per-pixel motion
+through the 3DGS rasterizer (``ops/raster3d.py``, plain torch on either
+device).
+
 Densification statistics: the reference's backward overwrites the
 screen-space gradient with dL_dmean2D.x = dL_dTu.z * Tw.z * (W/2).  A
 zero-valued ``screen_probe`` added to (Tu.z, Tv.z), pre-scaled by the
@@ -23,8 +27,10 @@ from ..config import RasterConfig
 from ..data.cameras import Camera
 from ..models.gaussians import GaussianParams, apply_deform
 from ..ops.binning import bin_gaussians
-from ..ops.projection import preprocess, tile_grid
+from ..ops.projection import matmul_fma, preprocess, tile_grid
+from ..ops.raster3d import rasterize_3dgs
 from ..ops.tiled_raster import blend_tiles, tiles_to_image
+from ..utils.quaternion import quat_normalize
 from ..utils.sh import sh_to_rgb
 
 
@@ -152,3 +158,55 @@ def render(cam: Camera, params: GaussianParams, bg: torch.Tensor,
         radii=prep.radius, visibility=prep.radius > 0, allmap=allmap,
         num_pairs=binning.num_pairs, overflow=overflow,
         clamped=binning.clamped)
+
+
+def _full_proj_uvz(xyz: torch.Tensor, cam: Camera, znear: float = 0.01,
+                   zfar: float = 100.0) -> torch.Tensor:
+    """NDC uvz through the 3DGS full projection (render_flow,
+    gaussian_renderer/__init__.py:259-266): P[0,0] = 1/tan(fovx/2) =
+    2 fx / W."""
+    z = torch.zeros((), dtype=torch.float32, device=xyz.device)
+    row0 = torch.stack([2.0 * cam.fx / cam.W, z, z, z])
+    row1 = torch.stack([z, 2.0 * cam.fy / cam.H, z, z])
+    row2 = torch.tensor([0.0, 0.0, zfar / (zfar - znear),
+                         -(zfar * znear) / (zfar - znear)],
+                        dtype=torch.float32, device=xyz.device)
+    row3 = torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=torch.float32,
+                        device=xyz.device)
+    full = matmul_fma(torch.stack([row0, row1, row2, row3]), cam.w2c)
+    hom = torch.cat([xyz, torch.ones_like(xyz[:, :1])], -1)
+    h = matmul_fma(hom[:, None, :], full.T)[:, 0]
+    return h[:, :3] / (h[:, 3:4] + 1e-7)
+
+
+def render_flow(params: GaussianParams, cam1: Camera, cam2: Camera | None,
+                d_xyz1, d_xyz2, d_rotation1=0.0, d_scaling1=0.0,
+                scaling_modifier: float = 1.0,
+                scale_const: float | None = None,
+                cfg: RasterConfig = RasterConfig()) -> dict:
+    """Optical-flow rendering (gaussian_renderer/__init__.py:222-337): the
+    uvz displacement of each Gaussian between (t1, cam1) and (t2, cam2)
+    (cam1 again when cam2 is None), splatted through the 3DGS rasterizer
+    as its colour, from the camera cam1.  Channel 2 carries the motion
+    mask; the canonical positions enter the displacement detached.
+    Returns the reference's dict: render, depth, alpha, radii,
+    visibility_filter."""
+    xyz_c = params.xyz.detach()
+    uvz1 = _full_proj_uvz(xyz_c + d_xyz1, cam1)
+    uvz2 = _full_proj_uvz(xyz_c + d_xyz2, cam1 if cam2 is None else cam2)
+    flow = uvz2 - uvz1
+    flow = torch.cat([flow[:, :2], params.motion_mask], dim=-1)
+
+    means3d = params.xyz + d_xyz1
+    if scale_const is not None:
+        scales = torch.full_like(params.get_scaling, scale_const)
+    else:
+        scales = params.get_scaling + d_scaling1
+    quats = quat_normalize(params.rotation + d_rotation1, eps=1e-12)
+    opacity = torch.where(params.alive, params.get_opacity[:, 0], 0.0)
+
+    image, radii, depth, alpha = rasterize_3dgs(
+        means3d, scales, quats, opacity, flow, cam1,
+        scale_modifier=scaling_modifier, cfg=cfg)
+    return dict(render=image, depth=depth, alpha=alpha, radii=radii,
+                visibility_filter=radii > 0)

@@ -17,6 +17,8 @@ trainer's ``precompile`` has no counterpart.
 from __future__ import annotations
 
 import dataclasses
+import math
+import os
 import time
 from typing import NamedTuple
 
@@ -32,14 +34,11 @@ from ..models.gaussians import GaussianParams, create_from_pcd
 from ..models.nodes import (NodeParams, densify_nodes, init_node_params,
                             init_nodes_from_pcl)
 from ..ops.ssim import l1, psnr, ssim
-from ..render.renderer import render
+from ..render.renderer import render, render_flow
 from ..utils.general import (farthest_point_sample, get_expon_lr_func,
                              get_linear_noise_func, resolve_device)
 from .config import TrainConfig
 from .optim import AdamState, adam_init, adam_update
-
-UNPORTED_LOSSES = ("the optical-flow loss needs the 3DGS flow rasterizer, "
-                   "which is not ported yet (ROADMAP.md)")
 
 GAUSS_FIELDS = ("xyz", "features_dc", "features_rest", "scaling",
                 "rotation", "opacity", "feature")
@@ -202,6 +201,36 @@ def photometric_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
     return loss, (out, ll1)
 
 
+def optical_flow_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
+                      cam2: Camera, gt_flow: torch.Tensor,
+                      flow_mask: torch.Tensor, pair_weight,
+                      image: torch.Tensor, gt: torch.Tensor,
+                      cfg: TrainConfig, sched: dict):
+    """Optical-flow supervision (train_gui.py:318-361): the per-pixel uv
+    motion between (cam, t1) and (cam2, t2), rendered by the 3DGS flow
+    rasterizer, L1 against the normalised RAFT flow, masked by solid
+    alpha (> 0.9), the RAFT mask, the time proximity ``pair_weight`` and
+    the photometric confidence cos(pi/2 |image - gt|)."""
+    step = sched.get("step", 10**9)
+    d1 = deform_gaussians(nodes, cfg.deform_cfg, gauss.xyz, cam.time,
+                          feature=gauss.feature,
+                          motion_mask=gauss.motion_mask, step=step)
+    d2 = deform_gaussians(nodes, cfg.deform_cfg, gauss.xyz, cam2.time,
+                          feature=gauss.feature,
+                          motion_mask=gauss.motion_mask, step=step)
+    f = render_flow(gauss, cam, cam2, d_xyz1=d1["d_xyz"],
+                    d_xyz2=d2["d_xyz"], d_rotation1=d1["d_rotation"],
+                    d_scaling1=d1["d_scaling"], cfg=cfg.raster)
+    coor_motion = f["render"][..., :2]                     # [H,W,2]
+    mask_motion = (f["alpha"][..., 0] > 0.9).to(torch.float32)
+    mask = (mask_motion * flow_mask[..., 0])[..., None] * pair_weight
+    # photometric-confidence weight (train_gui.py:355-358)
+    l1w = torch.cos(torch.mean(torch.abs(image.detach() - gt), dim=-1)
+                    * math.pi / 2.0)
+    mask = mask * l1w[..., None]
+    return l1(mask * gt_flow, mask * coor_motion)
+
+
 def _grads_and_adam(loss, groups, probe, opts, lrs):
     """One ``torch.autograd.grad`` over the three parameter groups and the
     screen probe, then Adam on each group in place.  Returns (the three
@@ -294,11 +323,10 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                     arap_draws: R.ArapDraws | None = None):
     """sched: warm (0/1: iter < warm_up), lambda_normal, lambda_dist,
     lambda_arap, deform_lr, xyz_lr (and optionally step; lambda_motion
-    with ``motion_loss``).  The ARAP term's random numbers are
-    ``arap_draws``, or drawn from ``state.generator``.  Returns (state,
-    metrics)."""
-    if flow_loss:
-        raise NotImplementedError(UNPORTED_LOSSES)
+    with ``motion_loss``, lambda_optical with ``flow_loss``).
+    flow_sample: (cam2, gt_flow [H,W,2], flow_mask [H,W,1],
+    pair_weight).  The ARAP term's random numbers are ``arap_draws``, or
+    drawn from ``state.generator``.  Returns (state, metrics)."""
     dev = state.gauss.xyz.device
     bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
     groups = [gauss_trainable(state.gauss), mlp_trainable(state.nodes),
@@ -329,6 +357,11 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                                  step=sched.get("step", 10**9))
         loss = loss + sched["lambda_motion"] * motion_mask_loss(
             g, cam, gt_alpha, bg, cfg, d=d)
+    if flow_loss:
+        cam2, gt_flow, flow_mask, pair_weight = flow_sample
+        loss = loss + sched["lambda_optical"] * optical_flow_loss(
+            state.gauss, state.nodes, cam, cam2, gt_flow, flow_mask,
+            pair_weight, out.image, gt, cfg, sched)
 
     (gauss_opt, mlp_opt, node_opt), g_probe = _grads_and_adam(
         loss, groups, probe, (state.gauss_opt, state.mlp_opt,
@@ -462,9 +495,8 @@ class Trainer:
     ``np.random.RandomState(seed)`` as the JAX trainer does, so both pick
     the same cameras; model draws come from the state's
     ``torch.Generator``.  ``precompile`` has no counterpart (PyTorch runs
-    eagerly).  The SIBR viewer, the sharded main stage and the
-    optical-flow loss (``flow_dirs``) are not ported yet: asking for them
-    raises ``NotImplementedError``."""
+    eagerly).  The SIBR viewer and the sharded main stage are not ported
+    yet: asking for them raises ``NotImplementedError``."""
 
     def __init__(self, cfg: TrainConfig, cameras, images,
                  init_points, init_colors, cameras_extent: float = 5.0,
@@ -473,9 +505,10 @@ class Trainer:
         """cameras: list[Camera] on ``device``; images: list of [H,W,3]
         float arrays or tensors; alphas: optional list of [H,W,1] gt alpha
         masks (the motion-mask loss when
-        ``cfg.gt_alpha_mask_as_dynamic_mask``)."""
-        if flow_dirs is not None:
-            raise NotImplementedError(UNPORTED_LOSSES)
+        ``cfg.gt_alpha_mask_as_dynamic_mask``); flow_dirs: optional
+        per-camera candidate RAFT flow files (``data/flow.find_flow_dirs``)
+        and image_names, which resolve a flow file's target frame: the
+        optical-flow loss."""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cameras = cameras
@@ -484,7 +517,11 @@ class Trainer:
         self.images = [as_t(im) for im in images]
         self.alphas = (None if alphas is None else
                        [None if a is None else as_t(a) for a in alphas])
-        self.flow_dirs = None
+        self.flow_dirs = flow_dirs
+        self._name2idx = ({} if image_names is None else
+                          {os.path.splitext(n)[0]: i
+                           for i, n in enumerate(image_names)})
+        self._times = [float(c.time) for c in cameras]
         self.extent = float(cameras_extent)
         self.state = init_train_state(
             cfg, init_points, init_colors,
@@ -503,8 +540,7 @@ class Trainer:
         self.smooth_term = get_linear_noise_func(
             lr_init=0.1, lr_final=1e-15, lr_delay_mult=0.01,
             max_steps=20_000)
-        self._time_order = np.argsort(
-            [float(c.time) for c in cameras]).tolist()
+        self._time_order = np.argsort(self._times).tolist()
         self.viewer = None
 
     def enable_sharded_training(self, mesh_shape, exchange_cap=None):
@@ -563,6 +599,32 @@ class Trainer:
         alpha = None if self.alphas is None else self.alphas[i]
         self._last_cam_idx = i
         return cam, img, alpha
+
+    def _pick_flow_sample(self, cam_idx: int):
+        """A random RAFT flow candidate of the picked camera, loaded, with
+        its target camera (train_gui.py:321-338), drawn from ``self.rng``
+        as the JAX trainer draws it.  Returns (cam2, gt_flow, flow_mask,
+        pair_weight), or None where the camera has no candidate, the
+        target frame is not a training image, or the file cannot be
+        read."""
+        if not self.flow_dirs or not self.flow_dirs[cam_idx]:
+            return None
+        from ..data.flow import load_flow, target_name
+        path = self.flow_dirs[cam_idx][
+            self.rng.randint(len(self.flow_dirs[cam_idx]))]
+        tgt = target_name(path)
+        if tgt not in self._name2idx:
+            return None
+        j = self._name2idx[tgt]
+        cam1 = self.cameras[cam_idx]
+        try:
+            flow, mask = load_flow(path, cam1.H, cam1.W)
+        except (OSError, ValueError):
+            return None
+        pw = float(np.clip(np.cos(abs(self._times[cam_idx] - self._times[j])
+                                  * np.pi / 2.0), 0.2, 1.0))
+        as_t = lambda a: torch.as_tensor(a, device=self.device)
+        return self.cameras[j], as_t(flow), as_t(mask), pw
 
     def _motion_lambda(self, it: int) -> float:
         """Landmark-scheduled motion-mask weight (arguments/__init__.py:
@@ -634,9 +696,21 @@ class Trainer:
             step=it)
         if motion:
             sched["lambda_motion"] = lam_motion
+        flow_sample = None
+        if self.flow_dirs is not None and it >= cfg.warm_up:
+            lam_opt = float(R.landmark_interpolate(
+                cfg.lambda_optical_landmarks, cfg.lambda_optical_steps,
+                step=max(0, it)))
+            if lam_opt > 0:
+                flow_sample = self._pick_flow_sample(self._last_cam_idx)
+                if flow_sample is not None:
+                    sched["lambda_optical"] = lam_opt
         self.state, metrics = main_stage_step(
             self.state, cam, gt, cfg, sched,
-            gt_alpha=alpha if motion else None, motion_loss=motion)
+            gt_alpha=alpha if motion else None, motion_loss=motion,
+            flow_sample=flow_sample, flow_loss=flow_sample is not None)
+        if flow_sample is not None:
+            metrics["lambda_optical"] = sched["lambda_optical"]
         self._post_main_maintenance(it)
         self.iteration += 1
         return metrics

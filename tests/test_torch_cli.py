@@ -160,15 +160,35 @@ def test_mesh_render_meshes(tmp_path):
         assert (img != 255).any(axis=-1).any()   # not all background
 
 
-def test_train_refuses_flow_files(tmp_path):
+def test_train_with_flow_files(tmp_path, capsys):
+    """``train --device cpu`` on a D-NeRF scene with RAFT flow files (one
+    per training frame, toward the next, half of them at half size)
+    trains with the optical-flow term: its steps log lambda_optical and
+    the report counts them."""
     from test_torch_data_io import dnerf_fixture
+
+    from d2dgs_torch.data.synthetic import write_flow_file
     root = dnerf_fixture(tmp_path / "scene", n_cams=2, n_times=2, H=16,
-                         W=16, n_test=1)
-    os.makedirs(os.path.join(root, "raft_neighbouring"))
-    open(os.path.join(root, "raft_neighbouring", "r_0.r_1.npy"), "w").close()
-    with pytest.raises(NotImplementedError, match="optical-flow"):
-        tcli.main(["train", "-s", root, "-m", str(tmp_path / "m"),
-                   "--device", "cpu"])
+                         W=16, n_test=1, name="{k:03d}")
+    rs = np.random.RandomState(0)
+    for k in range(3):
+        hw = (16, 16) if k % 2 else (8, 8)
+        write_flow_file(root, f"{k:03d}", f"{(k + 1) % 3:03d}",
+                        rs.normal(size=hw + (2,)).astype(np.float32),
+                        rs.uniform(size=hw + (2,)) > 0.3)
+    report = {}
+    argv = ["train", "-s", root, "-m", str(tmp_path / "m"), "--device",
+            "cpu", "--log_every", "1", "--warm_up", "2",
+            "--node_warm_up", "2", "--iterations_node_sampling", "3",
+            "--iterations_node_rendering", "4", "--iterations", "6",
+            "--densify_from_iter", "100", "--oneup_sh_degree_step", "100",
+            "--node_force_densify_prune_step", "100",
+            "--test_iterations", "-1", "--save_iterations", "-1"] + TINY
+    assert tcli.main(argv, report=report) == 0
+    out = capsys.readouterr().out
+    flow_lines = [ln for ln in out.splitlines() if "lambda_optical=" in ln]
+    assert len(flow_lines) == report["flow_steps"] >= 3
+    assert "nan" not in out
 
 
 # ----------------------------------------------------------------------

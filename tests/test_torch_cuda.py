@@ -388,3 +388,43 @@ def test_segmented_forward_matches_plain_on_gpu(cuda, route, kind):
     assert 0 < int(n_pass_a) <= pairs * PIX
     if kind == "packed":
         assert int(counts.max()) > 512
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True], ids=["pallas", "opaque"])
+def test_rasterize_3dgs_on_gpu_matches_cpu(cuda, opaque):
+    """The 3DGS flow rasterizer (plain torch) on the card against the
+    same call on the CPU: radii bitwise, image and alpha to 2e-5, depth
+    to 2e-4 (tests/test_torch_raster3d.py's tolerances), gradients of
+    the five inputs max-normalised to GRAD."""
+    from d2dgs_torch.ops.raster3d import rasterize_3dgs
+    g = torch.Generator().manual_seed(3)
+    n = 160
+    means = torch.randn(n, 3, generator=g) * 0.5
+    scales = torch.exp(torch.randn(n, 3, generator=g) * 0.3) * 0.1
+    quats = torch.nn.functional.normalize(torch.randn(n, 4, generator=g),
+                                          dim=-1)
+    opac = (torch.full((n,), 0.99) if opaque
+            else 0.3 + 0.6 * torch.rand(n, generator=g))
+    colors = torch.rand(n, 3, generator=g)
+    w = torch.rand(48, 64, 5, generator=g)
+    cfg = RasterConfig(tile_cap=256, chunk=64)
+    out = {}
+    for dev in ("cpu", cuda):
+        cam = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=48, W=64, device=dev)
+        xs = [a.to(dev).requires_grad_(True)
+              for a in (means, scales, quats, opac, colors)]
+        img, radii, depth, alpha = rasterize_3dgs(*xs, cam, cfg=cfg)
+        loss = torch.sum(torch.cat([img, depth, alpha], -1) * w.to(dev))
+        grads = torch.autograd.grad(loss, xs)
+        out[str(dev)] = [t.detach().cpu() for t in
+                         (img, radii, depth, alpha, *grads)]
+    c, d = out["cpu"], out["cuda"]
+    assert torch.equal(c[1], d[1]) and int((c[1] > 0).sum()) > 100
+    torch.testing.assert_close(d[0], c[0], rtol=0, atol=2e-5)
+    torch.testing.assert_close(d[2], c[2], rtol=0, atol=2e-4)
+    torch.testing.assert_close(d[3], c[3], rtol=0, atol=2e-5)
+    for a, b in zip(d[4:], c[4:]):
+        scale = b.abs().max()
+        assert scale > 0
+        torch.testing.assert_close(a / scale, b / scale, **GRAD)

@@ -31,16 +31,18 @@ from d2dgs_torch.train.config import TrainConfig
 torch.set_num_threads(1)
 
 
-def dnerf_fixture(root, n_cams=4, n_times=3, H=40, W=40, n_test=3):
+def dnerf_fixture(root, n_cams=4, n_times=3, H=40, W=40, n_test=3,
+                  name="r_{k}"):
     """A D-NeRF scene rendered from the port's synthetic video, alpha from
-    the image's coverage, the last ``n_test`` frames held out."""
+    the image's coverage, the last ``n_test`` frames held out; frame k is
+    named ``name.format(k=k)``."""
     cams, imgs, _, _ = make_video_dataset(3, n_cams=n_cams, n_times=n_times,
                                           H=H, W=W, n_gauss=16, device="cpu")
     rgba = [np.concatenate([im, (im.sum(-1, keepdims=True) > 0.02)
                             .astype(np.float32)], -1) for im in imgs]
     frames = list(zip(cams, rgba))
     write_dnerf_scene(str(root), {"train": frames[:-n_test],
-                                  "test": frames[-n_test:]})
+                                  "test": frames[-n_test:]}, name=name)
     return str(root)
 
 

@@ -1,5 +1,6 @@
 """The port's import rule: no module of d2dgs_torch/, not chip_smoke.py
-and not tools/convergence_torch.py imports jax, jaxlib or the JAX package
+and not the port's tools (tools/convergence_torch.py,
+tools/raster3d_profile.py) imports jax, jaxlib or the JAX package
 d2dgs_tpu, at module level or inside a function (the port must run where
 only torch and CUDA exist).
 Read with ast, so nothing is imported to check it."""
@@ -11,7 +12,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "d2dgs_tpu")
 FILES = sorted((ROOT / "d2dgs_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "convergence_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "convergence_torch.py",
+    ROOT / "tools" / "raster3d_profile.py"]
 
 
 def forbidden_imports(source: str) -> list[str]:
@@ -55,7 +57,8 @@ def test_the_port_has_modules_to_check():
               "d2dgs_torch/mesh/tsdf.py", "d2dgs_torch/native/__init__.py",
               "d2dgs_torch/mesh/render.py", "d2dgs_torch/data/articulated.py",
               "d2dgs_torch/data/colmap.py", "chip_smoke.py",
-              "tools/convergence_torch.py"):
+              "tools/convergence_torch.py", "d2dgs_torch/ops/raster3d.py",
+              "tools/raster3d_profile.py"):
         assert m in names
 
 

@@ -509,15 +509,29 @@ def test_main_stage_step_two_steps_match_jax(jstate, warm):
             assert float(v.abs().max()) == 0.0
 
 
-def test_main_stage_step_refuses_unported_losses(jstate):
-    """Only the optical-flow loss is left unported (the motion-mask loss
-    is held against JAX below)."""
-    ts = train_state_from_jax_arrays(_leaves(jstate), device="cpu")
+def test_main_stage_step_flow_term_changes_mlp_update(jstate):
+    """The optical-flow term reaches the deform MLP: one step with a flow
+    sample updates it otherwise than the same step without one (the JAX
+    package's tests/test_flow_loss.py check, on the port)."""
     cam = orbit_camera(**CAM, device="cpu")
-    with pytest.raises(NotImplementedError, match="optical-flow.*ROADMAP"):
-        ttrainer.main_stage_step(ts, cam, T(_gt()), CFG,
-                                 dict(SCHED, warm=0.0), flow_loss=True)
-    assert "motion" not in ttrainer.UNPORTED_LOSSES
+    cam2 = orbit_camera(**dict(CAM, time=0.7), device="cpu")
+    rs = np.random.RandomState(11)
+    flow = T((rs.normal(size=(32, 32, 2)) * 0.05).astype(np.float32))
+    draws = _arap_draws(jax.random.split(jstate.key)[1], 16)
+    mlps = []
+    for flow_loss in (False, True):
+        ts = train_state_from_jax_arrays(_leaves(jstate), device="cpu")
+        ts, m = ttrainer.main_stage_step(
+            ts, cam, T(_gt()), CFG, dict(SCHED, warm=0.0,
+                                         lambda_optical=0.1),
+            flow_sample=(cam2, flow, torch.ones(32, 32, 1), 1.0),
+            flow_loss=flow_loss, arap_draws=draws)
+        assert np.isfinite(float(m["loss"]))
+        mlps.append({k: v.detach().clone() for k, v in
+                     ttrainer.mlp_trainable(ts.nodes).items()})
+    diff = sum(float((mlps[0][k] - mlps[1][k]).abs().sum())
+               for k in mlps[0])
+    assert diff > 0.0
 
 
 def _gt_alpha(seed=4):

@@ -301,11 +301,14 @@ def test_trainer_trains_on_cpu():
         m = tr.step()
         assert np.isfinite(float(m["loss"]))
     assert tr.iteration == 6
-    # gt alpha masks are taken (the motion-mask loss); flow files are not
+    # gt alpha masks are taken (the motion-mask loss), and so are flow
+    # files (the optical-flow loss, tests/test_torch_flow.py)
     alphas = [im[..., :1] for im in imgs]
     tr = ttrainer.Trainer(TINY, cams, imgs, pts, cols, alphas=alphas,
                           device="cpu")
     assert tr.alphas[0].shape == (48, 48, 1)
-    with pytest.raises(NotImplementedError, match="optical-flow.*ROADMAP"):
-        ttrainer.Trainer(TINY, cams, imgs, pts, cols, flow_dirs=[[]] * 18,
-                         device="cpu")
+    names = [f"{i:03d}.png" for i in range(18)]
+    tr = ttrainer.Trainer(TINY, cams, imgs, pts, cols, flow_dirs=[[]] * 18,
+                          image_names=names, device="cpu")
+    assert tr.flow_dirs == [[]] * 18 and tr._name2idx["017"] == 17
+    assert tr._pick_flow_sample(0) is None      # no candidate file
