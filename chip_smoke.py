@@ -112,13 +112,39 @@ Phases (each one fails the run with a non-zero exit):
      checkpoint; prints rasterize_3dgs's forward and forward-plus-
      backward times and the chunks it walks, a main-stage step's time
      with and without the flow term and their peak memory, and the CLI
-     steps' times.
+     steps' times;
+  9. (run after phase 6, before phase 8 adds flow files to its scene)
+     the other deformation fields, DQB skinning and `cli edit` at full
+     width on phase 6's scene: `cli train --deform_type hash` from the
+     scene's initial cloud (the default TrainConfig and HashConfig:
+     capacity 200,000, 12 levels of 2^19 entries; 60 steps, the field
+     trained in the last 5, one test and one save iteration): no
+     stage-1 step, one K1 and one K2 per step, a falling L1, a finite
+     checkpoint, the tables of levels 7-11 bitwise their initial values
+     and those of 0-5 moved (the band mask at step 60), then `cli
+     render` and a non-empty `cli mesh --max_times 1`; K1 and K2 (on
+     every tile) against their plain versions on the last hash step's
+     own inputs and cotangent; `cli train --deform_type mlp` (20 steps)
+     and `static` (10), one K1 and one K2 per step; the DQB warp of
+     phase 3's scene (local-rotation and warp heads drawn from a seed)
+     on the card against the CPU and four served 800x800 views, one K1
+     each; `cli edit` on phase 6's trained node model (one handle at a
+     node, a drag with an arc, 8 frames, 3 ARAP rounds): 8 PNGs and a
+     GIF covering part of the view (where a node reaches no handle, the
+     reference's singular step may leave a frame empty), handles and
+     anchors within 1e-4 of their targets, finite solved nodes, the
+     nodes the handles determine within 1e-3 of the CPU's solve, one K1
+     per frame; prints each
+     type's step time, hash_encode's forward and forward-plus-backward
+     time on the hash step's rows, a served DQB view's and an edited
+     frame's time and the ARAP solve's.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import subprocess
@@ -271,12 +297,15 @@ def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 def check_backward(label, feats_sorted, binning, gx, chunk, flip,
-                   tiles=None, g=None, tag="phase 2b"):
+                   tiles=None, g=None, tag="phase 2b", batch=None):
     """K2 vs its plain version on one scene: a cotangent on the map rows
     (``g``, or one drawn from a seed), zero at the pixels whose
     termination or median flipped between K1 and the plain forward
     (``flip`` [T, PIX]) and, with ``tiles``, outside those tiles; all 18
-    feature gradients compared max-normalised per column."""
+    feature gradients compared max-normalised per column.  With
+    ``batch`` (and no ``tiles``) the plain version runs over every tile,
+    ``batch`` tiles of similar pair counts at a time (a pair's row is one
+    tile's, so the batches' gradients add up to the view's)."""
     from d2dgs_torch.ops.cuda.blend import (blend_bwd, blend_fwd,
                                             blend_tiles_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
@@ -293,7 +322,13 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
         g = torch.where(keep[:, None, None], g, 0.0)
     dk = blend_bwd(*args, state, records, g, seg)
     torch.cuda.synchronize()
-    dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
+    if batch and tiles is None:
+        order = torch.argsort(binning.tile_count, descending=True)
+        dp = sum(blend_tiles_plain_vjp(
+            *args, g, tiles=torch.sort(order[b0:b0 + batch]).values,
+            chunk=chunk) for b0 in range(0, num_tiles, batch))
+    else:
+        dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
     torch.cuda.synchronize()
     n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
     n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
@@ -2104,6 +2139,438 @@ def phase_8(dev, card, res6) -> dict:
     return res
 
 
+# ----------------------------------------------------------------------
+# phase 9: the other deformation fields, DQB skinning and `cli edit`, on
+# phase 6's D-NeRF scene (32 train, 4 test views at 800x800): `cli train
+# --deform_type hash|mlp|static` from the scene's initial cloud with the
+# default TrainConfig and HashConfig (capacity 200,000; 12 levels of 2^19
+# entries), only the depth cut, and with it the deform warm-up: the
+# default holds the field still for 3,000 of 80,000 steps while the
+# Gaussians fit; here the field trains in the last FIELD_LIVE steps.  A
+# fresh field under the default deform LR (Adam, 8e-4) moves the
+# Gaussians quadratically in its steps: trained from step 1, it moved
+# every Gaussian of this scene out of view by step 22 on an H100.  The
+# DQB warp on phase 3's serving scene; `cli edit` on phase 6's trained
+# node model
+HASH_STEPS = 60         # main-stage steps of `cli train --deform_type hash`
+MLP_STEPS = 20
+STATIC_STEPS = 10
+FIELD_LIVE = 5          # the last steps of each run, the field trained
+EDIT_FRAMES = 8
+EDIT_ARGS = ["--time", "0.5", "--drag=0.15,0.05,0.1", "--arc=0.0,0.12,0.0",
+             "--n_frames", str(EDIT_FRAMES), "--arap_iters", "3"]
+EDIT_TOL = 1e-4         # handles on their targets, anchors where they were
+# the card's ARAP solve against the CPU's (float32 LU from two LAPACKs on a
+# 1,024-node system; the scene spans ~2 units)
+EDIT_CPU_TOL = 1e-3
+# the DQB warp on the card against the CPU, on the Gaussians whose K
+# nearest nodes are the same on both (the bfloat16 selection can flip a
+# near tie); at most this share may differ
+DQB_TOL = 1e-4
+DQB_MAX_FLIPPED = 1e-3
+
+
+def field_train(scene: Path, model: Path, deform_type: str, steps: int,
+                spy=None) -> dict:
+    """`cli train --deform_type <type>` for ``steps`` main-stage steps from
+    the scene's initial cloud; returns the report, the launches and the
+    checkpoint's counters.  With HASH_STEPS a test and a save iteration
+    come last; ``spy`` keeps the blend backward's arguments."""
+    test = (["--test_iterations", str(steps), "--save_iterations",
+             str(steps)] if deform_type == "hash" else
+            ["--test_iterations", "-1", "--save_iterations", "-1"])
+    argv = ["train", "-s", str(scene), "-m", str(model), "--deform_type",
+            deform_type, "--iterations", str(steps - 1), "--warm_up",
+            str(steps - FIELD_LIVE + 1), "--log_every", "10", *test]
+    reset_counts()
+    ctx = (kernel_inputs("blend_bwd", spy) if spy is not None
+           else contextlib.nullcontext())
+    with ctx:
+        rep = run_cli(argv)
+    counts = launch_counts()
+    with np.load(model / "ckpt.npz") as z:
+        it, it_node = int(z["__iteration__"]), int(z["__iteration_node__"])
+        bad = [k for k in z.files if z[k].dtype.kind == "f"
+               and not np.isfinite(z[k]).all()]
+    n_test = N_TEST if deform_type == "hash" else 0
+    loss = rep.get("loss", [])
+    log(f"[phase 9] {deform_type}: each step (ms, the field trained in "
+        f"the last {FIELD_LIVE}) "
+        + json.dumps([round(v, 1) for v in rep["step_ms"]]))
+    if len(rep["step_ms"]) != steps or len(loss) != steps:
+        raise AssertionError(f"phase 9 {deform_type}: {len(rep['step_ms'])} "
+                             f"steps, {len(loss)} losses; expected {steps}")
+    if (counts["blend_fwd"], counts["blend_bwd"]) != (steps + n_test, steps) \
+            or counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
+        raise AssertionError(f"phase 9 {deform_type}: launches {counts} over "
+                             f"{steps} steps and {n_test} test views; "
+                             f"expected one K1 and one K2 per step")
+    if not np.isfinite(loss).all() or bad:
+        raise AssertionError(f"phase 9 {deform_type}: non-finite loss or "
+                             f"checkpoint arrays {bad[:5]}")
+    return {"report": rep, "launches": counts, "iteration": it,
+            "iteration_node": it_node,
+            "step_ms": float(np.mean(rep["step_ms"][1:])),
+            "step_ms_median": float(np.median(rep["step_ms"][1:])),
+            "live_step_ms": float(np.mean(rep["step_ms"][-FIELD_LIVE:]))}
+
+
+def initial_tables(scene: Path, dev) -> list:
+    """The hash tables `cli train --deform_type hash` starts from: the
+    same init_train_state, seed and cloud as its Trainer."""
+    from d2dgs_torch import cli
+    from d2dgs_torch.train.trainer import init_train_state
+    args = cli._base_parser("train", True).parse_args(
+        ["-s", str(scene), "-m", "unused", "--deform_type", "hash"])
+    cfg = cli.config_from_args(args)
+    info = cli._load_scene(args, dev)
+    state = init_train_state(
+        cfg, *cli._init_points(info, cfg, args.seed),
+        torch.Generator().manual_seed(args.seed), device=dev)
+    return [t.detach().cpu().numpy() for t in state.nodes.mlp["tables"]]
+
+
+def hash_encode_ms(model: Path, dev) -> dict:
+    """hash_encode's forward, and forward plus backward into the tables,
+    on the trained hash model's own Gaussians (every capacity row, as
+    the step runs it) at the step HASH_STEPS; and the backward of one
+    level's gather through index_select (the module's) against advanced
+    indexing, on that level's own indices."""
+    from d2dgs_torch.models.hash_deform import (HashConfig, _corner_index,
+                                                hash_encode)
+    cfg = HashConfig()
+    with np.load(model / "ckpt.npz") as z:
+        xyz = torch.as_tensor(z["leaf:.gauss.xyz"], device=dev)
+        tabs = [torch.as_tensor(z[f"leaf:.nodes.mlp['tables'][{lvl}]"],
+                                device=dev).requires_grad_(True)
+                for lvl in range(cfg.n_levels)]
+    lo, hi = cfg.bbox
+    x01 = torch.clamp((xyz - lo) / (hi - lo), 0.0, 1.0)
+    n = x01.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    w = torch.randn((n, cfg.enc_dim), device=dev, generator=gen)
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: hash_encode(tabs, cfg, x01, HASH_STEPS),
+                      reps=10)
+
+    def fwd_bwd():
+        enc = hash_encode(tabs, cfg, x01, HASH_STEPS)
+        torch.autograd.grad(torch.sum(enc * w), tabs)
+    # level 0's gather alone, both ways
+    res = cfg.resolution(0)
+    lo0 = torch.clamp(torch.floor(x01 * res).to(torch.int64), 0, res - 1)
+    corners = torch.tensor([[i >> 2 & 1, i >> 1 & 1, i & 1]
+                            for i in range(8)], device=dev)
+    tidx = _corner_index(lo0[:, None, :] + corners[None], res,
+                         cfg.table_size, 3)
+    g8 = torch.randn((n, 8, cfg.n_features), device=dev, generator=gen)
+    gather = {
+        "index_select": lambda: torch.autograd.grad(torch.sum(
+            torch.index_select(tabs[0], 0, tidx.reshape(-1)).reshape(
+                n, 8, -1) * g8), tabs[0]),
+        "advanced_indexing": lambda: torch.autograd.grad(torch.sum(
+            tabs[0][tidx] * g8), tabs[0])}
+    return {"fwd_ms": fwd, "fwd_bwd_ms": cuda_ms(fwd_bwd, reps=10),
+            "points": n, "dead_rows": int((xyz == 0).all(-1).sum()),
+            "gather_fwd_bwd_ms": {k: cuda_ms(f, reps=5)
+                                  for k, f in gather.items()}}
+
+
+def dqb_check(dev, card) -> dict:
+    """The DQB warp of phase 3's scene (its MLP's local-rotation and warp
+    heads raised from their near-zero init) on the card against the CPU,
+    then four served 800x800 views, one K1 launch each."""
+    from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch.data.cameras import orbit_camera
+    from d2dgs_torch.models.nodes import NodeParams, cal_nn_weight, warp
+    from d2dgs_torch.render.renderer import render
+    gauss, nodes, deform_cfg = full_scene(dev)
+    ncfg = dataclasses.replace(deform_cfg.node, skinning="dqb")
+    if not (ncfg.mlp.local_frame and ncfg.skinning == "dqb"):
+        raise AssertionError("phase 9: the DQB configuration is off")
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for head, std in (("local_rotation", 0.02), ("warp", 0.002)):
+            w = nodes.mlp[head]["w"]
+            w.copy_(torch.randn(w.shape, generator=gen).to(dev) * std)
+    nodes_cpu = NodeParams(nodes.nodes.detach().cpu(),
+                           nodes.node_radius.detach().cpu(),
+                           nodes.node_weight.detach().cpu(),
+                           copy.deepcopy(nodes.mlp).cpu(), nodes.alive.cpu())
+    t = 0.6
+    with torch.no_grad():
+        outs = {}
+        for where, n in (("cuda", nodes), ("cpu", nodes_cpu)):
+            d_of = lambda a: a.detach().to(where)
+            x, feat, mm = (d_of(gauss.xyz), d_of(gauss.feature),
+                           d_of(gauss.motion_mask))
+            d = warp(n, ncfg, x, torch.tensor(t, device=where), feature=feat,
+                     motion_mask=mm)
+            _, _, idx = cal_nn_weight(n, ncfg, x, feat)
+            outs[where] = ({k: d[k].cpu() for k in
+                            ("d_xyz", "d_rotation", "d_scaling")},
+                           torch.sort(idx, dim=-1).values.cpu())
+        del nodes_cpu
+    same = torch.all(outs["cuda"][1] == outs["cpu"][1], dim=-1)
+    alive = gauss.alive.cpu()
+    flipped = int((~same & alive).sum())
+    err = {k: float((outs["cuda"][0][k] - outs["cpu"][0][k])[same & alive]
+                    .abs().max()) for k in outs["cuda"][0]}
+    moved = float(outs["cuda"][0]["d_xyz"][alive].abs().max())
+    if flipped > DQB_MAX_FLIPPED * int(alive.sum()) or \
+            max(err.values()) > DQB_TOL or not moved > 1e-3:
+        raise AssertionError(f"phase 9: DQB warp card vs CPU {err} on "
+                             f"{int((same & alive).sum())} Gaussians, "
+                             f"{flipped} with other neighbours; largest "
+                             f"|d_xyz| {moved}")
+    # ---- served views: the DQB warp, then the render ----
+    cfg = RasterConfig()
+    bg = torch.zeros(3, device=dev)
+    cams = [orbit_camera(0.3, 0.25, 4.0, fov=0.69, H=800, W=800, time=tv,
+                         device=dev) for tv in (0.0, 0.25, 0.5, 0.75)]
+
+    def serve(cam):
+        d = warp(nodes, ncfg, gauss.xyz, cam.time, feature=gauss.feature,
+                 motion_mask=gauss.motion_mask)
+        return render(cam, gauss, bg, d_xyz=d["d_xyz"],
+                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+                      cfg=cfg)
+    with torch.no_grad():
+        reset_counts()
+        for i, cam in enumerate(cams):
+            out = serve(cam)
+            torch.cuda.synchronize()
+            if launch_counts()["blend_fwd"] != i + 1:
+                raise AssertionError(f"phase 9: DQB view {i}: K1 launches "
+                                     f"{launch_counts()}")
+            if not bool(torch.isfinite(out.image).all()) or \
+                    not float((out.alpha > 0).float().mean()) > 0:
+                raise AssertionError(f"phase 9: DQB view {i} is empty or "
+                                     f"not finite")
+        counts = launch_counts()
+        view_ms = cuda_ms(lambda: serve(cams[2]), reps=5)
+        warp_ms = cuda_ms(lambda: warp(nodes, ncfg, gauss.xyz, cams[2].time,
+                                       feature=gauss.feature,
+                                       motion_mask=gauss.motion_mask),
+                          reps=5)
+    del gauss, nodes
+    log(f"[phase 9] DQB warp ({int(alive.sum())} Gaussians, 1024 nodes, "
+        f"t={t}): card against CPU max |err| " + json.dumps(err)
+        + f" on the {int((same & alive).sum())} with the same neighbours "
+        f"({flipped} differ by a near tie), largest |d_xyz| {moved:.4f}; "
+        f"4 served 800x800 views, K1 launches {counts['blend_fwd']}; a "
+        f"served DQB view {view_ms:.3f} ms, its warp {warp_ms:.3f} ms "
+        f"({card})")
+    return {"launches": counts, "err": err, "flipped": flipped,
+            "view_ms": view_ms, "warp_ms": warp_ms}
+
+
+def arap_determined(nbr: np.ndarray, handles: np.ndarray):
+    """Of the editing graph's nodes (out-edges ``nbr`` [N, K]) with the
+    rows of ``handles`` pinned: (free, determined) bool masks.  A node
+    that reaches no handle along out-edges is free: the free nodes form
+    closed sets, on which the global step's matrix has rows summing to 0,
+    so it is singular and the solve's values there are arbitrary.  A node
+    is determined when it reaches no free node (a handle's row is its
+    own)."""
+    n = nbr.shape[0]
+    pinned = np.zeros(n, bool)
+    pinned[handles] = True
+
+    def reaches(targets):
+        hit = targets.copy()
+        while True:
+            new = hit | (hit[nbr].any(1) & ~pinned)
+            if (new == hit).all():
+                return hit
+            hit = new
+    free = ~reaches(pinned)
+    return free, ~reaches(free)
+
+
+def edit_check(scene: Path, model: Path, dev, card) -> dict:
+    """`cli edit` on phase 6's trained node model: one handle at a node,
+    a drag with an arc, EDIT_FRAMES frames.  Checks one K1 per frame, the
+    frames and GIF, finite solved nodes, handles and anchors on their
+    targets and the card's solve against the CPU's on the nodes the
+    handles determine.  Where some nodes reach no handle, the global
+    step is singular (the reference's fault, ROADMAP.md section 3) and
+    the solve may move them anywhere, so only then may a frame show
+    nothing; its coverage is printed."""
+    from PIL import Image
+
+    from d2dgs_torch.edit import LapDeform
+    with np.load(model / "ckpt_best.npz") as z:
+        node = z["leaf:.nodes.nodes"][7, :3]
+    handle = ",".join(f"{v:.6f}" for v in node)
+    reset_counts()
+    rep = run_cli(["edit", "-s", str(scene), "-m", str(model),
+                   f"--handle={handle}", *EDIT_ARGS])
+    counts = launch_counts()
+    out = model / "edit"
+    covered = [float((np.asarray(Image.open(out / f"frame_{f:04d}.png"))
+                      > 0).any(-1).mean()) for f in range(EDIT_FRAMES)]
+    hidx, rest = rep["handle_idx"], rep["rest_nodes"]
+    anchors = hidx[rep["n_drag"]:]
+    lap = LapDeform(rest, K=4, device="cpu")
+    free, determined = arap_determined(lap.graph.nbr.numpy(), hidx)
+    pinned = np.zeros(rest.shape[0], bool)
+    pinned[hidx] = True
+    sv = np.linalg.svd(np.where(pinned[:, None], np.eye(rest.shape[0]),
+                                lap.graph.L.numpy().astype(np.float64)),
+                       compute_uv=False)
+    finite = all(np.isfinite(s).all() for s in rep["solved"])
+    land, anchor_err, cpu_err, cpu_err_all, moved = 0.0, 0.0, 0.0, 0.0, []
+    for hp, solved in zip(rep["handle_pos"], rep["solved"]):
+        land = max(land, float(np.abs(solved[hidx] - hp).max()))
+        anchor_err = max(anchor_err, float(np.abs(
+            solved[anchors] - rest[anchors]).max()))
+        diff = np.abs(solved - lap.deform_arap(hidx, hp, n_iters=3)[0]
+                      .numpy()).max(-1)
+        cpu_err = max(cpu_err, float(diff[determined].max()))
+        cpu_err_all = max(cpu_err_all, float(diff.max()))
+        moved.append(float(np.abs(solved - rest).max()))
+    res = {"launches": counts, "frame_ms": float(np.mean(rep["frame_ms"][1:])),
+           "solve_ms": float(np.mean(rep["solve_ms"][1:])),
+           "handle_err": land, "anchor_err": anchor_err, "cpu_err": cpu_err,
+           "cpu_err_all": cpu_err_all, "free_nodes": int(free.sum()),
+           "sigma_min_over_max": float(sv[-1] / sv[0]),
+           "determined_nodes": int(determined.sum()),
+           "nodes": int(rest.shape[0]), "handles": int(rep["n_drag"]),
+           "anchors": int(anchors.size), "covered": covered}
+    log(f"[phase 9] cli edit: {res['nodes']} nodes, {res['handles']} "
+        f"dragged and {res['anchors']} anchored, {EDIT_FRAMES} frames: "
+        f"{res['frame_ms']:.2f} ms per edited frame, ARAP solve "
+        f"{res['solve_ms']:.2f} ms (means of frames 2-{EDIT_FRAMES}, each "
+        f"between two device synchronisations) ({card}); handles within "
+        f"{land:.3g} of their targets, anchors within {anchor_err:.3g}; "
+        f"{res['free_nodes']} nodes reach no handle (the global step's "
+        f"matrix has sigma_min / sigma_max {res['sigma_min_over_max']:.3g}),"
+        f" {res['determined_nodes']} are determined: the card's "
+        f"solve within {cpu_err:.3g} of the CPU's on those, {cpu_err_all:.3g}"
+        f" on all; solved nodes finite {finite}, each frame's largest node "
+        f"move " + json.dumps([round(v, 4) for v in moved])
+        + " and share of the view covered "
+        + json.dumps([round(v, 4) for v in covered]) + f"; launches {counts}")
+    if (counts["blend_fwd"], counts["blend_bwd"]) != (EDIT_FRAMES, 0):
+        raise AssertionError(f"phase 9 edit: launches {counts}; expected "
+                             f"one K1 per frame")
+    if not (out / "edit.gif").exists() or not finite:
+        raise AssertionError(f"phase 9 edit: gif "
+                             f"{(out / 'edit.gif').exists()}, solved nodes "
+                             f"finite {finite}")
+    if land > EDIT_TOL or anchor_err > EDIT_TOL or cpu_err > EDIT_CPU_TOL:
+        raise AssertionError(f"phase 9 edit: handles {land}, anchors "
+                             f"{anchor_err} from their targets, card vs "
+                             f"CPU {cpu_err} on the determined nodes")
+    if not all(c < 1 for c in covered) or \
+            (not free.any() and not all(c > 0 for c in covered)):
+        raise AssertionError(f"phase 9 edit: frames cover {covered} of the "
+                             f"view with {int(free.sum())} free nodes")
+    return res
+
+
+def phase_9(dev, card, res6) -> dict:
+    """The deform types, DQB and `cli edit` at full width."""
+    t_start = time.time()
+    scene = res6["scene"]
+    base = scene.parent
+    # ---- (a) hash ----
+    last_step = {}
+    h = field_train(scene, base / "model_hash", "hash", HASH_STEPS,
+                    spy=lambda a, k: last_step.update(args=a, kw=k))
+    loss = h["report"]["loss"]
+    if h["iteration_node"] != res6["cfg"].iterations_node_rendering or \
+            h["iteration"] != HASH_STEPS + 1:
+        raise AssertionError(f"phase 9 hash: the checkpoint's counters "
+                             f"{h['iteration']}, {h['iteration_node']}: a "
+                             f"stage-1 step ran")
+    if not np.mean(loss[-10:]) < np.mean(loss[:10]):
+        raise AssertionError(f"phase 9 hash: L1 did not fall: {loss}")
+    init = initial_tables(scene, dev)
+    with np.load(base / "model_hash" / "ckpt.npz") as z:
+        tables = [z[f"leaf:.nodes.mlp['tables'][{lvl}]"]
+                  for lvl in range(len(init))]
+    still = [lvl for lvl in range(len(init))
+             if np.array_equal(tables[lvl], init[lvl])]
+    if still[:1] != [7] or still != list(range(7, 12)):
+        raise AssertionError(f"phase 9 hash: levels unchanged {still}; "
+                             f"expected 7-11 (the band mask at step "
+                             f"{HASH_STEPS})")
+    rep_r = run_cli(["render", "-s", str(scene), "-m",
+                     str(base / "model_hash")])
+    with open(base / "model_hash" / "results.json") as fh:
+        hash_results = json.load(fh)
+    meshes = run_cli(["mesh", "-s", str(scene), "-m",
+                      str(base / "model_hash"), *CLI_MESH])["meshes"]
+    if len(meshes) != 1 or meshes[0]["faces"] == 0:
+        raise AssertionError(f"phase 9 hash: empty mesh {meshes}")
+    # K1 and K2 against their plain versions on the last step's own
+    # inputs and cotangent
+    fs, pair_rank, tile_start, tile_count, gx, _, _, g, _ = last_step["args"]
+    chunk = last_step["kw"]["chunk"]
+    binning = launch_binning(pair_rank, tile_start, tile_count)
+    top = int(tile_count.max())
+    label = f"hash step {HASH_STEPS} (fullest tile {top} pairs)"
+    # K2 on every tile: the fog's threshold flips gather in its fullest
+    # tiles, so the flip share is judged over the view, as K1's is
+    with torch.no_grad():
+        _, res_k1 = check_kernel(label, fs, binning, gx, chunk,
+                                 tag="phase 9")
+        res_k2 = check_backward(
+            label + ", its own cotangent on every tile", fs, binning, gx,
+            chunk, res_k1.pop("flip_mask"), g=g, tag="phase 9", batch=64)
+    res_k1["busiest_tile_pairs"] = res_k2["busiest_tile_pairs"] = top
+    del last_step, fs, pair_rank, tile_start, tile_count, g, binning
+    torch.cuda.empty_cache()
+    enc = hash_encode_ms(base / "model_hash", dev)
+    log(f"[phase 9] cli train --deform_type hash: {HASH_STEPS} main-stage "
+        f"steps from the initial cloud, {h['step_ms']:.2f} ms per step "
+        f"(mean of steps 2-{HASH_STEPS}, median {h['step_ms_median']:.2f}; "
+        f"the last {FIELD_LIVE}, the field trained, {h['live_step_ms']:.2f})"
+        f" ({card}); L1 {np.mean(loss[:10]):.5f} -> {np.mean(loss[-10:]):.5f} "
+        f"(means of the first and last 10); launches {h['launches']}; "
+        f"levels 7-11 unchanged, 0-5 moved; test PSNR "
+        f"{hash_results['psnr']:.3f}, render {rep_r['view_ms']:.1f} ms per "
+        f"view; mesh {meshes[0]['faces']} faces; hash_encode on the step's "
+        f"{enc['points']} rows ({enc['dead_rows']} dead, at the origin): "
+        f"forward {enc['fwd_ms']:.3f} ms, forward + backward "
+        f"{enc['fwd_bwd_ms']:.3f} ms; level 0's gather forward + backward "
+        + json.dumps(enc["gather_fwd_bwd_ms"]) + " ms")
+    # ---- (b) mlp and static ----
+    m = field_train(scene, base / "model_mlp", "mlp", MLP_STEPS)
+    s = field_train(scene, base / "model_static", "static", STATIC_STEPS)
+    log(f"[phase 9] cli train --deform_type mlp: {MLP_STEPS} steps, "
+        f"{m['step_ms']:.2f} ms per step (median {m['step_ms_median']:.2f}, "
+        f"the last {FIELD_LIVE} {m['live_step_ms']:.2f}); static: "
+        f"{STATIC_STEPS} steps, {s['step_ms']:.2f} ms (median "
+        f"{s['step_ms_median']:.2f}) ({card}); launches {m['launches']}, "
+        f"{s['launches']}")
+    # ---- (c) DQB ----
+    dqb = dqb_check(dev, card)
+    torch.cuda.empty_cache()
+    # ---- (d) cli edit ----
+    ed = edit_check(scene, base / "model", dev, card)
+    launches = {k: h["launches"][k] + m["launches"][k] + s["launches"][k]
+                for k in h["launches"]}
+    log(f"[phase 9] phase 9 {time.time() - t_start:.1f} s")
+    return {"launches_fields": launches, "launches_dqb": dqb["launches"],
+            "launches_edit": ed["launches"], "fwd_check": res_k1,
+            "bwd_check": res_k2, "hash_step_ms": h["step_ms"],
+            "hash_live_step_ms": h["live_step_ms"],
+            "mlp_step_ms": m["step_ms"], "mlp_live_step_ms": m["live_step_ms"],
+            "static_step_ms": s["step_ms"],
+            "hash_l1": [float(np.mean(loss[:10])), float(np.mean(loss[-10:]))],
+            "hash_encode": enc, "dqb": {k: dqb[k] for k in (
+                "err", "flipped", "view_ms", "warp_ms")},
+            "edit": {k: ed[k] for k in (
+                "frame_ms", "solve_ms", "handle_err", "anchor_err", "cpu_err",
+                "cpu_err_all", "free_nodes", "determined_nodes",
+                "sigma_min_over_max")},
+            "hash_mesh_faces": meshes[0]["faces"],
+            "hash_test_psnr": hash_results["psnr"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2437,6 +2904,12 @@ def main() -> int:
         res6 = phase_6(dev, card, Path(tmp))
         torch.cuda.empty_cache()
 
+        # ---- phase 9: the other deform types, DQB and cli edit, on the
+        # scene before phase 8 adds flow files to it (with them `cli
+        # train` adds the flow term once the warm-up ends) ----
+        res9 = phase_9(dev, card, res6)
+        torch.cuda.empty_cache()
+
         # ---- phase 7: the geometry path on the articulated figure ----
         res7 = phase_7(dev, card)
         fwd_checks.update(res7["fwd_checks"])
@@ -2447,12 +2920,16 @@ def main() -> int:
         res8 = phase_8(dev, card, res6)
     paths = {"serve": serve_launches, "train": train_launches,
              "trainer": res5b["launches"], "cli": res6["launches"],
-             "geometry": res7["launches"], "flow": res8["launches"]}
+             "geometry": res7["launches"], "flow": res8["launches"],
+             "fields": res9["launches_fields"], "dqb": res9["launches_dqb"],
+             "edit": res9["launches_edit"]}
     needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
               "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
               "cli": ("blend_fwd", "blend_bwd"),
               "geometry": ("blend_fwd", "blend_bwd"),
-              "flow": ("blend_fwd", "blend_bwd")}
+              "flow": ("blend_fwd", "blend_bwd"),
+              "fields": ("blend_fwd", "blend_bwd"), "dqb": ("blend_fwd",),
+              "edit": ("blend_fwd",)}
     for path, names in needed.items():
         for k in names:
             if paths[path][k] == 0:
@@ -2465,9 +2942,7 @@ def main() -> int:
         "name": "blend_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:664",
-        "launches": serve_launches["blend_fwd"]
-        + train_launches["blend_fwd"] + res6["launches"]["blend_fwd"]
-        + res7["launches"]["blend_fwd"] + res8["launches"]["blend_fwd"],
+        "launches": sum(c["blend_fwd"] for c in paths.values()),
         "launches_by_path": by_path("blend_fwd"),
         "max_abs_err": res0["max_abs_err"],
         "flipped_pixels": res0["flipped"], **flip_fields(fwd_checks),
@@ -2481,18 +2956,24 @@ def main() -> int:
         "bound_by": bound1["bound_by"], "library_ms": None,
         **fwd_fields(k1_items),
         "render_ms": render_ms, "stages_ms": stages,
-        "cli_view_ms": res6["view_ms"]}, {
+        "cli_view_ms": res6["view_ms"],
+        "fields_check": {f: res9["fwd_check"][f] for f in (
+            "busiest_tile_pairs", "max_abs_err", "flipped")},
+        "deform_types": {k: res9[k] for k in (
+            "hash_step_ms", "hash_live_step_ms", "mlp_step_ms",
+            "mlp_live_step_ms", "static_step_ms", "hash_l1",
+            "hash_encode", "dqb", "edit", "hash_mesh_faces",
+            "hash_test_psnr")}}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
-        "launches": train_launches["blend_bwd"]
-        + res6["launches"]["blend_bwd"] + res7["launches"]["blend_bwd"]
-        + res8["launches"]["blend_bwd"],
+        "launches": sum(c["blend_bwd"] for c in paths.values()),
         "launches_by_path": by_path("blend_bwd"),
         "max_abs_err": res_k2["max_abs_err"],
         "max_norm_err": {k: v["max_norm_err"] for k, v in bwd_checks.items()},
         "flipped_pixels": {k: v["flipped"] for k, v in bwd_checks.items()},
         "geometry_check": res7["bwd_checks"]["geometry step"],
+        "fields_check": res9["bwd_check"],
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": bound2["bound_ms"], "bound_by": bound2["bound_by"],
         "library_ms": None,

@@ -17,13 +17,15 @@ command line asks for the CPU.
 command's measurements (train step times taken with a device
 synchronisation around each step, each step's L1, the count of steps
 with the optical-flow term, ms per test view, the mesh grid and
-its fusion and extraction times, and with ``mesh --render_meshes`` the
-two mesh renders' times) for callers that time the CLI.
+its fusion and extraction times, with ``mesh --render_meshes`` the
+two mesh renders' times, and for ``edit`` each frame's ARAP solve and
+frame time with the solved node positions) for callers that time the CLI.
 
-``train`` on a scene with RAFT flow files (``raft_neighbouring/``) adds
-the optical-flow loss, as the JAX CLI does.  Not ported yet, each raising
-NotImplementedError: ``edit`` and ``train --mesh_shape`` /
-``--exchange_cap``.
+``train`` takes every deform type (``--deform_type node|mlp|hash|
+static``); on a scene with RAFT flow files (``raft_neighbouring/``) it
+adds the optical-flow loss, as the JAX CLI does.  ``edit`` drags control
+nodes of a ``node`` model.  The sharded stage is not ported yet:
+``train --mesh_shape`` / ``--exchange_cap`` raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -491,8 +493,129 @@ def cmd_mesh(argv, report=None) -> int:
 
 
 def cmd_edit(argv, report=None) -> int:
-    raise NotImplementedError("cli edit (ARAP editing of the control "
-                              "nodes) is not ported yet (ROADMAP.md)")
+    """The editing workflow (the reference's handle-drag path: train_gui.py
+    keypoint mode, lap_deform.py:96-226, utils/bezier.py): load a
+    checkpoint, pick the control nodes nearest each --handle (ring
+    expanded) as the drag group, move it along a bezier drag, ARAP-solve
+    the rest of the nodes with the farthest ones anchored, re-skin the
+    Gaussians rigidly about the moved nodes (warp_with_bias / p2dR) and
+    render the edited frames to PNG (and a GIF).  ``report`` receives
+    per frame the solve's and the frame's ms (each between two device
+    synchronisations), the handle targets and the solved nodes."""
+    p = _base_parser("edit", train_flags=False)
+    p.add_argument("--ckpt", type=str, default="ckpt_best.npz")
+    p.add_argument("--time", type=float, default=0.0,
+                   help="timestamp whose pose is edited")
+    p.add_argument("--handle", type=str, action="append", required=True,
+                   metavar="X,Y,Z",
+                   help="world-space pick; the nearest control node (+ "
+                        "--rings ring expansion) becomes the drag group; "
+                        "repeatable")
+    p.add_argument("--drag", type=str, required=True, metavar="DX,DY,DZ",
+                   help="total drag displacement of the handle group")
+    p.add_argument("--arc", type=str, default=None, metavar="DX,DY,DZ",
+                   help="optional mid-trajectory offset (bezier control "
+                        "point) for a curved drag")
+    p.add_argument("--rings", type=int, default=1)
+    p.add_argument("--n_anchors", type=int, default=16,
+                   help="nodes farthest from the drag group held fixed "
+                        "in the ARAP solve")
+    p.add_argument("--arap_iters", type=int, default=3)
+    p.add_argument("--n_frames", type=int, default=16)
+    p.add_argument("--gif", action="store_true", default=True)
+    p.add_argument("--out", type=str, default="edit")
+    args = merge_cfg_args(p.parse_args(argv), argv)
+    dev = _device(args)
+    cfg, info, state = _restore(args, dev)
+    if cfg.deform_type != "node":
+        raise SystemExit("cli edit drags control nodes — requires "
+                         "--deform_type node (reference editing operates "
+                         "on SC-GS control points)")
+
+    import torch
+    from PIL import Image
+
+    from .edit import DeformKeypoints, LapDeform
+    from .models.nodes import expand_time, node_deform, warp_with_bias
+    from .render.renderer import render
+    from .utils.bezier import bezier_trajectory
+    from .utils.quaternion import quat_multiply, quat_normalize
+
+    g, nodes = state.gauss, state.nodes
+    t = torch.tensor(args.time, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        attrs = node_deform(nodes, cfg.node_cfg, expand_time(nodes, t))
+        cur_t = nodes.nodes[:, :3] + attrs["d_xyz"]          # nodes at t
+    cur = cur_t.cpu().numpy()
+
+    # --- keypoint selection: nearest node per pick, ring-expanded ---
+    lap = LapDeform(cur_t, K=4, device=dev)
+    kp = DeformKeypoints()
+    for spec in args.handle:
+        pnt = np.asarray([float(v) for v in spec.split(",")], np.float32)
+        i = int(np.argmin(((cur - pnt) ** 2).sum(1)))
+        kp.add_kpts(cur, lap.add_n_ring_nbs(i, args.rings), expand=True)
+    drag_idx, drag_pos = kp.get_kpts()
+    rest = np.setdiff1d(np.arange(cur.shape[0]), drag_idx)
+    d2 = ((cur[rest][:, None] - cur[drag_idx][None]) ** 2).sum(-1).min(1)
+    anchors = rest[np.argsort(-d2)[:min(args.n_anchors, rest.size)]]
+
+    drag = np.asarray([float(v) for v in args.drag.split(",")], np.float32)
+    mid = (np.asarray([float(v) for v in args.arc.split(",")], np.float32)
+           if args.arc else drag * 0.5)
+    traj = bezier_trajectory(
+        np.stack([np.zeros(3, np.float32), mid, drag]),
+        np.linspace(0.0, 1.0, args.n_frames)).numpy()
+
+    cam = (info.test_cameras or info.train_cameras)[0].camera
+    cam = dataclasses.replace(cam, time=t)
+    bg = _bg(cfg, dev)
+
+    @torch.no_grad()
+    def render_edited(bias):
+        d = warp_with_bias(nodes, cfg.node_cfg, g.xyz, t,
+                           feature=g.feature, motion_mask=g.motion_mask,
+                           node_trans_bias=bias)
+        d_rot = d["d_rotation"]
+        if "d_rotation_bias" in d:
+            q = quat_multiply(d["d_rotation_bias"],
+                              quat_normalize(g.rotation + d_rot, eps=1e-12))
+            d_rot = q - g.rotation
+        out = render(cam, g, bg, d_xyz=d["d_xyz"], d_rotation=d_rot,
+                     d_scaling=d["d_scaling"], cfg=cfg.raster)
+        return out.image
+
+    out_dir = os.path.join(args.model_path, args.out)
+    os.makedirs(out_dir, exist_ok=True)
+    hidx = np.concatenate([drag_idx, anchors])
+    pils = []
+    for f in range(args.n_frames):
+        hpos = np.concatenate([drag_pos + traj[f], cur[anchors]])
+        _sync(dev)
+        t0 = time.perf_counter()
+        p_prime, _ = lap.deform_arap(hidx, hpos, n_iters=args.arap_iters)
+        _sync(dev)
+        t1 = time.perf_counter()
+        img = render_edited(p_prime - cur_t)
+        arr = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+        t2 = time.perf_counter()
+        pil = Image.fromarray(arr)
+        pil.save(os.path.join(out_dir, f"frame_{f:04d}.png"))
+        pils.append(pil)
+        if report is not None:
+            report.setdefault("solve_ms", []).append((t1 - t0) * 1e3)
+            report.setdefault("frame_ms", []).append((t2 - t0) * 1e3)
+            report.setdefault("handle_pos", []).append(hpos)
+            report.setdefault("solved", []).append(p_prime.cpu().numpy())
+        print(f"[edit] frame {f + 1}/{args.n_frames}", flush=True)
+    if report is not None:
+        report.update(handle_idx=hidx, n_drag=int(drag_idx.size),
+                      rest_nodes=cur)
+    if args.gif and pils:
+        pils[0].save(os.path.join(out_dir, "edit.gif"), save_all=True,
+                     append_images=pils[1:], duration=80, loop=0)
+    print(f"wrote {args.n_frames} edited frames to {out_dir}")
+    return 0
 
 
 def cmd_mesh_metrics(argv, report=None) -> int:

@@ -104,9 +104,12 @@ def _gauss(g: dict, t, with_motion_mask: bool,
 
 
 def _adam(o: dict, t) -> AdamState:
-    return AdamState(mu={k: t(v) for k, v in _flat_names(o["mu"]).items()},
-                     nu={k: t(v) for k, v in _flat_names(o["nu"]).items()},
-                     count=t(o["count"]).to(torch.int32))
+    """A group's moments; a group without parameters (the static field's)
+    has no mu/nu leaves."""
+    return AdamState(
+        mu={k: t(v) for k, v in _flat_names(o.get("mu", {})).items()},
+        nu={k: t(v) for k, v in _flat_names(o.get("nu", {})).items()},
+        count=t(o["count"]).to(torch.int32))
 
 
 def _stats(s: dict, t) -> DensifyStats:
@@ -116,7 +119,10 @@ def _stats(s: dict, t) -> DensifyStats:
 def from_jax_arrays(leaves: Mapping[str, np.ndarray], device="cuda",
                     with_motion_mask: bool = True):
     """Build (GaussianParams, NodeParams) from JAX TrainState leaves keyed
-    by their keystr path (with or without the ``leaf:`` prefix).
+    by their keystr path (with or without the ``leaf:`` prefix).  The
+    node slot's ``mlp`` holds whichever deform field the state was
+    trained with: the node MLP, the mlp or hash field, or nothing
+    (static).
     ``with_motion_mask`` is static metadata the arrays do not carry (the
     JAX trainer's Gaussians always have it)."""
     dev = resolve_device(device)
@@ -129,7 +135,8 @@ def from_jax_arrays(leaves: Mapping[str, np.ndarray], device="cuda",
     gauss = _gauss(tree["gauss"], t, with_motion_mask)
     nodes = NodeParams(
         nodes=t(n["nodes"]), node_radius=t(n["node_radius"]),
-        node_weight=t(n["node_weight"]), mlp=mlp_from_arrays(n["mlp"], dev),
+        node_weight=t(n["node_weight"]),
+        mlp=mlp_from_arrays(n.get("mlp", {}), dev),
         alive=t(n["alive"]).to(torch.bool))
     return gauss, nodes
 

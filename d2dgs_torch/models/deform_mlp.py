@@ -77,20 +77,30 @@ def progressive_band_encoding(x: torch.Tensor, multires: int, step,
 
 
 def mlp_from_arrays(tree: dict, device) -> nn.ModuleDict:
-    """Build the parameter module from a nested dict of arrays
-    ({"layers": [{"w", "b"}, ...], "warp": {"w", "b"}, ...})."""
+    """Build a deform field's parameter module from a nested dict of
+    arrays: the MLP's ({"layers": [{"w", "b"}, ...], "warp": {"w", "b"},
+    ...}), the hash field's ({"tables": [...], "mlp": [...], ...}) or the
+    static field's {}.  A dict of arrays becomes an ``nn.ParameterDict``,
+    a list of arrays an ``nn.ParameterList``, and deeper dicts and lists
+    ``nn.ModuleDict``/``nn.ModuleList``, so ``named_parameters`` spells
+    the JAX pytree's paths ("layers.0.w", "tables.3")."""
     dev = torch.device(device)
 
-    def pdict(d):
-        return nn.ParameterDict({
-            k: nn.Parameter(torch.tensor(np.asarray(v, np.float32),
+    def leaf(v):
+        return nn.Parameter(torch.tensor(np.asarray(v, np.float32),
                                          device=dev))
-            for k, v in d.items()})
 
-    return nn.ModuleDict({
-        name: (nn.ModuleList([pdict(layer) for layer in sub])
-               if name == "layers" else pdict(sub))
-        for name, sub in tree.items()})
+    def build(node):
+        items = node.values() if isinstance(node, dict) else node
+        nested = any(isinstance(v, (dict, list)) for v in items)
+        if isinstance(node, dict):
+            return (nn.ModuleDict({k: build(v) for k, v in node.items()})
+                    if nested else
+                    nn.ParameterDict({k: leaf(v) for k, v in node.items()}))
+        return (nn.ModuleList([build(v) for v in node]) if nested
+                else nn.ParameterList([leaf(v) for v in node]))
+
+    return nn.ModuleDict({name: build(sub) for name, sub in tree.items()})
 
 
 def init_mlp(cfg: MLPConfig, generator: torch.Generator | None = None,

@@ -7,9 +7,11 @@ per-node MLP deltas, gated by its motion mask; the KNN runs in
 (xyz + hyper) space with Gaussian-kernel weights exp(-d^2 / 2r^2) * w_node.
 Nodes are capacity-padded with an ``alive`` mask (dead nodes are at
 +inf distance); node densification (``densify_nodes``) adds and prunes
-nodes slot for slot as the JAX package does.  Only linear-blend skinning
-(plain and local-frame) is ported; dual-quaternion blending waits
-(ROADMAP.md).
+nodes slot for slot as the JAX package does.  Skinning is a linear blend
+of the per-node transforms (plain or rigid local frames) or, with
+``skinning="dqb"`` and local frames, a dual-quaternion blend.  The
+editing warp (``warp_with_bias``) moves the nodes by a bias, fits their
+rotations (``p2dR``) and re-binds the Gaussians to the moved nodes.
 """
 from __future__ import annotations
 
@@ -18,8 +20,11 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..ops.knn import knn
+from ..utils.dual_quaternion import dq_blend, quat_apply
 from ..utils.general import farthest_point_sample, resolve_device
-from ..utils.quaternion import quat_to_rotmat
+from ..utils.quaternion import (quat_multiply, quat_normalize,
+                                quat_to_rotmat, rotmat_to_quat)
 from .deform_mlp import MLPConfig, init_mlp, mlp_forward
 from .densify import free_slot_lookup
 
@@ -36,8 +41,8 @@ class NodeConfig:
     # the main stage's ARAP weight follows lambda_arap_schedule when on
     with_arap_loss: bool = False
     is_scene_static: bool = False
-    # "lbs": linear blend of per-node transforms; "dqb" (dual-quaternion
-    # blend) is not ported yet
+    # "lbs": linear blend of per-node transforms; "dqb": dual-quaternion
+    # blend of the rigid local frames (with mlp.local_frame only)
     skinning: str = "lbs"
     # float32 KNN membership selection; False selects on a bfloat16 copy
     # of the distances exactly as the JAX package does (only near-tie
@@ -121,15 +126,18 @@ def init_nodes_from_pcl(params: NodeParams, cfg: NodeConfig,
 
 
 def cal_nn_weight(params: NodeParams, cfg: NodeConfig, x: torch.Tensor,
-                  feature: torch.Tensor | None, K: int | None = None):
+                  feature: torch.Tensor | None, K: int | None = None,
+                  nodes: torch.Tensor | None = None):
     """Gaussian->node binding weights (time_utils.py:934-967).
 
-    x: [N,3] (detached inside); feature: [N,hyper] learnable hyper coords.
+    x: [N,3] (detached inside); feature: [N,hyper] learnable hyper coords;
+    nodes: node positions to bind to in place of ``params.nodes``.
     Returns (weight [N,K], dist2 [N,K], idx [N,K] int64).
     """
     K = cfg.K if K is None else K
     q = x.detach()
-    ref = params.nodes[:, :3].detach()
+    base = params.nodes if nodes is None else nodes
+    ref = base[:, :3].detach()
     if feature is not None and cfg.hyper_dim > 0:
         q = torch.cat([q, feature[..., :cfg.hyper_dim]], dim=-1)
         ref = torch.cat([ref, params.nodes[:, 3:]], dim=-1)
@@ -196,9 +204,6 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
     Returns dict(d_xyz [N,3], d_rotation [N,4], d_scaling [N,2],
     d_opacity, d_color).
     """
-    if cfg.mlp.local_frame and cfg.skinning == "dqb":
-        raise NotImplementedError(
-            "dual-quaternion skinning is not ported yet (ROADMAP.md)")
     t = expand_time(params, t) if torch.as_tensor(t).dim() == 0 else t
     x = x.detach()
     nn_weight, _, nn_idx = cal_nn_weight(params, cfg, x, feature)
@@ -212,10 +217,11 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
         cols.append(attrs["d_opacity"])
     if cfg.mlp.pred_color and attrs["d_color"] is not None:
         cols.append(attrs["d_color"])
-    if cfg.mlp.local_frame:
+    bias = torch.tensor(ROT_BIAS, device=x.device)
+    use_dqb = cfg.mlp.local_frame and cfg.skinning == "dqb"
+    if cfg.mlp.local_frame and not use_dqb:
         # rigid local frames: A_k(x) = R_k (x - p_k) + p_k + tr_k factors
         # as (sum_k w R_k) x + sum_k w_k v_k, v_k = p_k + tr_k - R_k p_k
-        bias = torch.tensor(ROT_BIAS, device=x.device)
         Rl = quat_to_rotmat(attrs["local_rotation"] + bias)    # [M,3,3]
         p = params.nodes[:, :3].detach()
         v = p + node_trans - torch.einsum("mij,mj->mi", Rl, p)
@@ -228,7 +234,18 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
     blended = torch.sum(nn_weight[..., None] * table[nn_idx], dim=1)
     parts = torch.split(blended, widths, dim=-1)
 
-    if cfg.mlp.local_frame:
+    if use_dqb:
+        # dual-quaternion blend of the per-node rigid transforms
+        # A_k(x) = R_k (x - p_k) + p_k + tr_k = (R_k, p_k + tr_k - R_k p_k)
+        local_rot = quat_normalize(attrs["local_rotation"] + bias,
+                                   eps=1e-12)
+        nn_nodes = params.nodes[:, :3].detach()[nn_idx]        # [N,K,3]
+        qk = local_rot[nn_idx]                                 # [N,K,4]
+        tk = nn_nodes + node_trans[nn_idx] - quat_apply(qk, nn_nodes)
+        qb, tb = dq_blend(qk, tk, nn_weight)
+        translate = quat_apply(qb, x) + tb - x
+        rot_b, scale_b, *rest = parts[1:]
+    elif cfg.mlp.local_frame:
         Rb = parts[0].reshape(-1, 3, 3)
         translate = torch.einsum("nij,nj->ni", Rb, x) + parts[1] - x
         rot_b, scale_b, *rest = parts[2:]
@@ -241,8 +258,7 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
         rotation = rot_b * motion_mask
     else:
         # blend(node_rot + ROT_BIAS) == rot_b + ROT_BIAS (weights sum to 1)
-        rotation = rot_b * motion_mask + torch.tensor(ROT_BIAS,
-                                                      device=x.device)
+        rotation = rot_b * motion_mask + bias
     scale = scale_b * motion_mask
     out = {"d_xyz": translate, "d_rotation": rotation, "d_scaling": scale,
            "d_opacity": None, "d_color": None}
@@ -252,6 +268,87 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
         ri += 1
     if cfg.mlp.pred_color and attrs["d_color"] is not None:
         out["d_color"] = rest[ri] * motion_mask
+    return out
+
+
+@torch.no_grad()
+def get_trajectory(params: NodeParams, cfg: NodeConfig,
+                   t_samp_num: int = 8) -> torch.Tensor:
+    """Node positions at linspace(0,1) timestamps, detached
+    (time_utils.py:1026-1042).  Returns [M, T, 3]."""
+    m = params.nodes.shape[0]
+    t_samp = torch.linspace(0.0, 1.0, t_samp_num, device=params.nodes.device)
+    t = t_samp[None, :, None].expand(m, t_samp_num, 1)
+    d_xyz = node_deform(params, cfg, t)["d_xyz"]
+    return params.nodes[:, None, :3] + d_xyz
+
+
+@torch.no_grad()
+def p2dR(params: NodeParams, cfg: NodeConfig, p: torch.Tensor,
+         p0: torch.Tensor, K: int = 8, mode: str = "trajectory"):
+    """SVD-fit per-node rotations from node positions
+    (time_utils.py:1044-1078): neighbours from the trajectory KNN graph
+    (``mode="trajectory"``) or the node positions, normalised edges at
+    rest (p0) and deformed (p), weighted covariance, dR = V U^T as
+    quaternions.  As in the reference, neighbours weigh
+    softmax(d^2 / mean(d^2)) and no det(R) fix is applied, so a planar
+    neighbourhood may give a reflection."""
+    if mode == "trajectory":
+        traj = get_trajectory(params, cfg, t_samp_num=4)
+        feats = traj.reshape(traj.shape[0], -1)
+    else:
+        feats = params.nodes[:, :3]
+    d2, idx = knn(feats, feats, K, exclude_self=True)
+    w = torch.softmax(d2 / (torch.mean(d2) + 1e-12), dim=-1)   # [M,K]
+    e0 = p0[idx] - p0[:, None, :]
+    et = p[idx] - p[:, None, :]
+    e0 = e0 / (torch.linalg.vector_norm(e0, dim=-1, keepdim=True) + 1e-5)
+    et = et / (torch.linalg.vector_norm(et, dim=-1, keepdim=True) + 1e-5)
+    S = torch.einsum("nka,nk,nkb->nab", e0, w, et)
+    U, _, Vh = torch.linalg.svd(S)
+    dR = torch.einsum("nji,nkj->nik", Vh, U)                   # V @ U^T
+    return rotmat_to_quat(dR)
+
+
+def warp_with_bias(params: NodeParams, cfg: NodeConfig, x: torch.Tensor,
+                   t, feature, motion_mask, node_trans_bias: torch.Tensor,
+                   K_rebind: int = 32) -> dict:
+    """The editing warp: ``warp`` plus a per-node translation bias
+    (ControlNodeWarp.forward's node_trans_bias paths,
+    time_utils.py:1165-1214).  The bias moves the nodes, ``p2dR`` fits
+    the induced per-node rotations, and the Gaussians, at their current
+    positions, are re-bound to the ``K_rebind`` nearest moved nodes and
+    carried rigidly about them.  The bias handling is detached, as in
+    the reference's no_grad blocks."""
+    base = warp(params, cfg, x, t, feature=feature, motion_mask=motion_mask)
+    with torch.no_grad():
+        t_e = (expand_time(params, t) if torch.as_tensor(t).dim() == 0
+               else t)
+        node_trans = node_deform(params, cfg, t_e)["d_xyz"]
+        x = x.detach()
+        cur_node = params.nodes[:, :3] + node_trans            # nodes at t
+        nodes_t = cur_node + node_trans_bias                   # + edit bias
+        node_rot_bias = p2dR(params, cfg, p=nodes_t, p0=cur_node, K=8)
+        cur_gs = x + base["d_xyz"]
+        nn_weight, _, nn_idx = cal_nn_weight(
+            params, cfg, cur_gs, feature=None,
+            K=min(K_rebind, params.nodes.shape[0]), nodes=cur_node)
+        Rb = quat_to_rotmat(node_rot_bias)[nn_idx]             # [N,K,3,3]
+        rel = cur_gs[:, None, :] - cur_node[nn_idx]
+        gs_t = nodes_t[nn_idx] + torch.einsum("gkab,gkb->gka", Rb, rel)
+        gs_avg = torch.sum(gs_t * nn_weight[..., None], dim=1)
+        translate = (gs_avg - x) * motion_mask
+        bias = torch.tensor(ROT_BIAS, device=x.device)
+        d_rot_bias = torch.sum(node_rot_bias[nn_idx] * nn_weight[..., None],
+                               dim=1)
+        d_rot_bias = (d_rot_bias - bias) * motion_mask + bias
+    out = dict(base)
+    out["d_xyz"] = translate
+    if cfg.d_rot_as_res:
+        out["d_rotation_bias"] = d_rot_bias
+    else:
+        # fold the bias rotation into the absolute rotation field
+        out["d_rotation"] = quat_multiply(d_rot_bias, base["d_rotation"])
     return out
 
 

@@ -2,7 +2,7 @@
 reference's arguments/__init__.py (ModelParams / OptimizationParams /
 PipelineParams) as a frozen dataclass with the same defaults, the D-NeRF
 recipe of script/train9.sh (``--is_blender --gt_alpha_mask_as_scene_mask
---local_frame``).  Only the ``node`` deform type is ported.
+--local_frame``).
 """
 from __future__ import annotations
 
@@ -18,8 +18,7 @@ from ..models.nodes import NodeConfig
 class TrainConfig:
     # model (ModelParams, arguments/__init__.py:50-98)
     sh_degree: int = 3
-    # node (ControlNodeWarp, the D-2DGS default) | static; mlp and hash
-    # are not ported yet
+    # node (ControlNodeWarp, the D-2DGS default) | mlp | hash | static
     deform_type: str = "node"
     progressive_band_time: bool = False
     hyper_dim: int = 8
@@ -82,8 +81,8 @@ class TrainConfig:
     no_arap_loss: bool = False
 
     # motion-mask loss (train_gui.py:363-370, 509-515; needs the views'
-    # gt alpha masks) and optical-flow loss (train_gui.py:318-361; not
-    # ported yet)
+    # gt alpha masks) and optical-flow loss (train_gui.py:318-361; needs
+    # raft_neighbouring/ flow files, data/flow.py)
     gt_alpha_mask_as_dynamic_mask: bool = False
     no_motion_mask_loss: bool = False
     lambda_motion_mask_landmarks: tuple = (5e-1, 1e-2, 0.0)

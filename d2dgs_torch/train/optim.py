@@ -22,9 +22,11 @@ class AdamState(NamedTuple):
     count: torch.Tensor   # 0-d int32 step count of the group
 
 
-def adam_init(params: Mapping[str, torch.Tensor]) -> AdamState:
+def adam_init(params: Mapping[str, torch.Tensor], device=None) -> AdamState:
+    """Zero moments and count; ``device`` places the count of a group
+    without parameters (the static deform field's)."""
     zeros = lambda: {k: torch.zeros_like(p) for k, p in params.items()}
-    dev = next(iter(params.values())).device
+    dev = device if device is not None else next(iter(params.values())).device
     return AdamState(mu=zeros(), nu=zeros(),
                      count=torch.zeros((), dtype=torch.int32, device=dev))
 

@@ -28,7 +28,7 @@ import torch
 from ..data.cameras import Camera
 from ..models import densify as D
 from ..models import regularizers as R
-from ..models.deform import deform_gaussians
+from ..models.deform import deform_gaussians, init_deform
 from ..models.deform_mlp import mlp_forward
 from ..models.gaussians import GaussianParams, create_from_pcd
 from ..models.nodes import (NodeParams, densify_nodes, init_node_params,
@@ -105,11 +105,10 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
     """All model state from the scene's initial point cloud
     (GUI.__init__, train_gui.py:147-170).  Random draws (the MLP weights,
     the FPS start of the nodes, the later steps' draws) come from
-    ``generator`` (default: seed 0)."""
-    if cfg.deform_type != "node":
-        raise NotImplementedError(
-            f"deform_type {cfg.deform_type!r}: only the node type is "
-            f"ported to training (ROADMAP.md)")
+    ``generator`` (default: seed 0).  The nodes are built from the point
+    cloud for every deform type; for "mlp", "hash" and "static" the
+    field's parameters then take the place of ``nodes.mlp``
+    (models/deform.py ``deform_gaussians``), drawn after the nodes'."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(0) if generator is None \
         else generator
@@ -120,6 +119,8 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
     init_nodes_from_pcl(nodes, cfg.node_cfg,
                         torch.as_tensor(np.asarray(init_points, np.float32)),
                         generator=gen)
+    if cfg.deform_type != "node":
+        nodes.mlp = init_deform(cfg.deform_cfg, gen, dev)
     # stage-1 isotropic Gaussians on the node positions (init_gaussians,
     # time_utils.py:1258-1266: SH degree 0, colours 0.5)
     node_xyz = nodes.nodes[:, :3].detach().cpu().numpy()
@@ -132,7 +133,7 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
         gauss=gauss, gauss_opt=adam_init(gauss_trainable(gauss)),
         gauss_stats=D.init_stats(cfg.gaussian_capacity, dev),
         nodes=nodes, node_opt=adam_init(node_trainable(nodes)),
-        mlp_opt=adam_init(mlp_trainable(nodes)), generator=gen,
+        mlp_opt=adam_init(mlp_trainable(nodes), device=dev), generator=gen,
         ngauss=ngauss, ngauss_opt=adam_init(gauss_trainable(ngauss)),
         ngauss_stats=D.init_stats(cfg.node_gauss_capacity, dev))
 
@@ -236,7 +237,10 @@ def _grads_and_adam(loss, groups, probe, opts, lrs):
     screen probe, then Adam on each group in place.  Returns (the three
     new AdamStates, the probe's gradient)."""
     inputs = [p for g in groups for p in g.values()] + [probe]
-    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    # a view where nothing is drawn leaves the loss a constant of the
+    # background on the plain path: every gradient is zero, as in JAX
+    grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
+             if loss.requires_grad else [None] * len(inputs))
     new, i = [], 0
     for g, opt, lr in zip(groups, opts, lrs):
         new.append(adam_update(dict(zip(g, grads[i:i + len(g)])), opt, g,

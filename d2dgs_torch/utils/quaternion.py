@@ -73,3 +73,19 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
                     torch.where(best == 1, c1,
                                 torch.where(best == 2, c2, c3)))
     return standardize_quaternion(quat_normalize(q, eps=1e-12))
+
+
+def quat_raw_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b, wxyz layout."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    ow = aw * bw - ax * bx - ay * by - az * bz
+    ox = aw * bx + ax * bw + ay * bz - az * by
+    oy = aw * by - ax * bz + ay * bw + az * bx
+    oz = aw * bz + ax * by - ay * bx + az * bw
+    return torch.stack([ow, ox, oy, oz], dim=-1)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a*b with a non-negative real part."""
+    return standardize_quaternion(quat_raw_multiply(a, b))

@@ -1,6 +1,6 @@
 """Port parity, the command line: d2dgs_torch.cli's parser, config
 reflection and saved-config merge against d2dgs_tpu.cli's, the shared
-init-cloud subsampling, the commands that are not ported yet, and (slow)
+init-cloud subsampling, the options that are not ported yet, and (slow)
 the whole train -> render -> mesh journey on a tiny D-NeRF scene on the
 CPU, once in-process and once as ``python -m d2dgs_torch.cli``; and
 ``mesh --render_meshes`` on that scene."""
@@ -115,8 +115,6 @@ def test_init_points_match_jax():
 
 
 def test_unported_commands_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["edit", "-m", str(tmp_path), "--device", "cpu"])
     for flags in (["--mesh_shape", "2x2"], ["--exchange_cap", "4096"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tcli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path),

@@ -177,13 +177,22 @@ def test_init_nodes_from_pcl_parity():
 
 
 def test_deform_types_not_ported_raise():
+    """Every deform type and DQB skinning is ported (their parity is
+    tests/test_torch_deform_types.py and tests/test_torch_hash_deform.py):
+    none raises; static gives zeros, and the mlp type queries the field
+    in the node slot at the detached Gaussians."""
     _, _, pcfg, tp, x, feat, mm = _node_setup(True)
-    out = deform_gaussians(tp, DeformConfig(deform_type="static"), T(x), 0.5)
-    assert all(float(out[k].abs().max()) == 0.0
-               for k in ("d_xyz", "d_rotation", "d_scaling"))
-    for kind in ("mlp", "hash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            deform_gaussians(tp, DeformConfig(deform_type=kind), T(x), 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnodes.warp(tp, dataclasses.replace(pcfg, skinning="dqb"), T(x), 0.5,
-                    T(feat), T(mm))
+    for nodes in (tp, None):          # static reads no parameters
+        out = deform_gaussians(nodes, DeformConfig(deform_type="static"),
+                               T(x), 0.5)
+        assert all(float(out[k].abs().max()) == 0.0
+                   for k in ("d_xyz", "d_rotation", "d_scaling"))
+    out = deform_gaussians(tp, DeformConfig(deform_type="mlp",
+                                            mlp=pcfg.mlp), T(x), 0.5)
+    want = tmlp.mlp_forward(tp.mlp, pcfg.mlp, T(x),
+                            torch.full((x.shape[0], 1), 0.5))
+    for k in ("d_xyz", "d_rotation", "d_scaling"):
+        torch.testing.assert_close(out[k], want[k], rtol=0, atol=0)
+    dqb = tnodes.warp(tp, dataclasses.replace(pcfg, skinning="dqb"), T(x),
+                      0.5, T(feat), T(mm))
+    assert bool(torch.isfinite(dqb["d_xyz"]).all())
