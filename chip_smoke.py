@@ -138,6 +138,22 @@ Phases (each one fails the run with a non-zero exit):
      type's step time, hash_encode's forward and forward-plus-backward
      time on the hash step's rows, a served DQB view's and an edited
      frame's time and the ARAP solve's.
+  10. (last) the sharded path of d2dgs_torch/parallel/ on the phase-3
+     scene at t = 0.5: the tile exchange of 4 ranks emulated in one
+     process (one card; NCCL takes no two ranks on one GPU): each shard's
+     records, routed by indexing, each slab merged and blended through K1
+     with the global-tile map, held against its plain version with the
+     same map, the stitched slabs against the whole grid's K1 (bitwise
+     but for the pixels of tiles that depth ties reorder, counted), K2
+     with the map on the busiest slab against its plain VJP; the records
+     and bytes per (source, destination) and the pair balance; then 10
+     sharded main-stage steps through NCCL at world size 1, each from
+     the state and with the draws of main_stage_step (loss to rtol
+     2e-4, no overflow, one K1 and one K2 each), both timed; 8 SIBR
+     viewer frames of phase 6's trained model over loopback through
+     Trainer.attach_viewer (one K1 each, the last bitwise its direct
+     render); and K1 and K2 of the whole grid timed without the map and
+     with the identity map.
 The line before the last two is the JSON record of the kernels, then the
 card's name and power limit; the last line is the device JSON.
 """
@@ -265,19 +281,21 @@ def train_buffers(counts):
     return records, segment_layout(counts)
 
 
-def check_kernel(label, feats_sorted, binning, gx, chunk, tag="phase 2"):
-    """K1 in serving and in training mode against blend_tiles_plain;
-    returns the serving state and its check, with the training mode's
-    flip counts under ``training``."""
+def check_kernel(label, feats_sorted, binning, gx, chunk, tag="phase 2",
+                 gtile=None):
+    """K1 in serving and in training mode against blend_tiles_plain (with
+    the global-tile map ``gtile``, when given, on both sides); returns the
+    serving state and its check, with the training mode's flip counts
+    under ``training``."""
     from d2dgs_torch.ops.cuda.blend import blend_fwd
     from d2dgs_torch.ops.tiled_raster import blend_tiles_plain
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
             binning.tile_count, gx)
-    sk = blend_fwd(*args)
+    sk = blend_fwd(*args, gtile=gtile)
     records, seg = train_buffers(binning.tile_count)
-    st = blend_fwd(*args, records=records, segments=seg)
+    st = blend_fwd(*args, records=records, segments=seg, gtile=gtile)
     torch.cuda.synchronize()
-    sp = blend_tiles_plain(*args, chunk=chunk)
+    sp = blend_tiles_plain(*args, chunk=chunk, tile_ids=gtile)
     torch.cuda.synchronize()
     pairs = int(binning.num_pairs)
     train = check_states(tag, label + ", training mode", st, sp, pairs)
@@ -297,7 +315,8 @@ def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
 
 
 def check_backward(label, feats_sorted, binning, gx, chunk, flip,
-                   tiles=None, g=None, tag="phase 2b", batch=None):
+                   tiles=None, g=None, tag="phase 2b", batch=None,
+                   gtile=None):
     """K2 vs its plain version on one scene: a cotangent on the map rows
     (``g``, or one drawn from a seed), zero at the pixels whose
     termination or median flipped between K1 and the plain forward
@@ -305,7 +324,8 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     feature gradients compared max-normalised per column.  With
     ``batch`` (and no ``tiles``) the plain version runs over every tile,
     ``batch`` tiles of similar pair counts at a time (a pair's row is one
-    tile's, so the batches' gradients add up to the view's)."""
+    tile's, so the batches' gradients add up to the view's).  ``gtile``:
+    the global-tile map of both sides."""
     from d2dgs_torch.ops.cuda.blend import (blend_bwd, blend_fwd,
                                             blend_tiles_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
@@ -313,22 +333,23 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
             binning.tile_count, gx)
     num_tiles = binning.tile_start.shape[0]
     records, seg = train_buffers(binning.tile_count)
-    state = blend_fwd(*args, records=records, segments=seg)
+    state = blend_fwd(*args, records=records, segments=seg, gtile=gtile)
     g = map_cotangent(state, seed=4) if g is None else g
     g = torch.where(flip[:, None, :], 0.0, g)
     if tiles is not None:
         keep = torch.zeros(num_tiles, dtype=torch.bool, device=g.device)
         keep[tiles] = True
         g = torch.where(keep[:, None, None], g, 0.0)
-    dk = blend_bwd(*args, state, records, g, seg)
+    dk = blend_bwd(*args, state, records, g, seg, gtile=gtile)
     torch.cuda.synchronize()
     if batch and tiles is None:
         order = torch.argsort(binning.tile_count, descending=True)
         dp = sum(blend_tiles_plain_vjp(
             *args, g, tiles=torch.sort(order[b0:b0 + batch]).values,
-            chunk=chunk) for b0 in range(0, num_tiles, batch))
+            chunk=chunk, gtile=gtile) for b0 in range(0, num_tiles, batch))
     else:
-        dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk)
+        dp = blend_tiles_plain_vjp(*args, g, tiles=tiles, chunk=chunk,
+                                   gtile=gtile)
     torch.cuda.synchronize()
     n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
     n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
@@ -2571,6 +2592,443 @@ def phase_9(dev, card, res6) -> dict:
             "hash_test_psnr": hash_results["psnr"]}
 
 
+# ----------------------------------------------------------------------
+# phase 10: the sharded path (d2dgs_torch/parallel/) on the phase-3 scene
+# at t = 0.5: the tile exchange of SHARD_D ranks emulated in one process
+# (the card is one: NCCL takes no two ranks on one GPU), each slab blended
+# through K1 and K2 with the global-tile map; the sharded training step
+# through NCCL at world size 1; the SIBR viewer serving phase 6's trained
+# model; K1 and K2 timed with and without the map
+SHARD_D = 4
+SHARD_STEPS = 10
+VIEWER_FRAMES = 8
+REC_BYTES = 4 * (19 + 1) + 4   # a record's features and tile, its flag
+
+
+def shard_view(gauss, nodes, deform_cfg, cam):
+    """The rasterizer inputs of one view (the node warp, apply_deform, the
+    SH colours), as render() builds them."""
+    from d2dgs_torch.models.deform import deform_gaussians
+    from d2dgs_torch.models.gaussians import apply_deform
+    from d2dgs_torch.utils.sh import sh_to_rgb
+    d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
+                         feature=gauss.feature, motion_mask=gauss.motion_mask)
+    means, scales, quats, opac, sh = apply_deform(
+        gauss, d["d_xyz"], d["d_rotation"], d["d_scaling"])
+    dirs = means - cam.cam_center[None, :]
+    dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, -1, keepdim=True) + 1e-20)
+    return (means, scales, quats, opac,
+            sh_to_rgb(gauss.active_sh_degree, sh, dirs), gauss.alive)
+
+
+def emulate_exchange(view, cam, cfg, D: int) -> dict:
+    """The sharded render's pipeline for D ranks in one process: each
+    shard's preprocess and records (``_emit_records``), the exchange by
+    indexing (what rank e receives is block e of every source), each
+    slab's merge (``_sort_records``) and K1's arguments (``slab_inputs``);
+    and the whole grid's binning of the same per-Gaussian values (the
+    shards' preprocess concatenated), which the stitched slabs must
+    reproduce."""
+    from d2dgs_torch.ops.binning import bin_gaussians
+    from d2dgs_torch.ops.projection import Preprocessed, preprocess, tile_grid
+    from d2dgs_torch.ops.tiled_raster import pack_features
+    from d2dgs_torch.parallel.gauss_shard import (NFEAT, _emit_records,
+                                                  _sort_records,
+                                                  shard_gaussians,
+                                                  slab_inputs)
+    gx, gy = tile_grid(cam.H, cam.W)
+    num_tiles = gx * gy
+    my_tiles = -(-num_tiles // D)
+    preps, feats, opcs = [], [], []
+    for d in range(D):
+        means, scales, quats, opac, colors, alive = shard_gaussians(D, d, view)
+        prep = preprocess(means, scales, quats, cam)
+        valid = prep.valid & alive
+        prep = prep._replace(valid=valid,
+                             radius=torch.where(valid, prep.radius, 0))
+        opc = torch.where(valid, opac, 0.0)
+        preps.append(prep)
+        opcs.append(opc)
+        feats.append(torch.cat([prep.T.reshape(-1, 9), prep.center,
+                                prep.normal, colors, opc[:, None],
+                                prep.depth[:, None]], dim=-1))
+    counts = torch.stack([
+        _emit_records(p, None, gx, gy, D, cfg, 0, counts_only=True,
+                      opacity=o) for p, o in zip(preps, opcs)])  # [src,dst]
+    cap = -(-int(counts.max()) // 256) * 256
+    blocks = [_emit_records(p, f, gx, gy, D, cfg, cap, opacity=o)
+              for p, f, o in zip(preps, feats, opcs)]
+    overflow = int(sum(int(b[2]) for b in blocks))
+    slabs = []
+    for e in range(D):
+        recs = torch.stack([b[0][e] for b in blocks]).reshape(-1, NFEAT + 1)
+        ok = torch.stack([b[1][e] for b in blocks]).reshape(-1)
+        s_feat, s_ok, start, count, glob = _sort_records(
+            recs, ok, my_tiles, num_tiles, D, e)
+        slabs.append((slab_inputs(s_feat, s_ok, start, count, glob, gx, gy,
+                                  cfg), s_feat[:, 18]))
+    prep = Preprocessed(*(torch.cat([p[i] for p in preps])
+                          for i in range(len(preps[0]))))
+    opc = torch.cat(opcs)
+    b = bin_gaussians(prep, gx, gy, cfg, opacity=opc)
+    fs = pack_features(prep.T, prep.center, prep.normal,
+                       torch.cat([f[:, 14:17] for f in feats]),
+                       opc)[b.order.long()].contiguous()
+    return {"counts": counts.cpu().numpy(), "cap": cap, "overflow": overflow,
+            "slabs": slabs, "grid_x": gx, "whole": (fs, b),
+            "whole_depth": prep.depth[b.order.long()]}
+
+
+def stitched_check(ex, cfg, whole_state) -> dict:
+    """The slabs' K1 states stitched into the grid against the whole
+    grid's K1 state: pair by pair, each slab tile's list against the whole
+    grid's (the same rows, or a reorder among equal depths: a depth tie
+    between shards), then the pixels whose state differs, each in a tile
+    with a tie reorder or not (a fault)."""
+    from d2dgs_torch.ops.cuda.blend import blend_fwd
+    fs, b = ex["whole"]
+    w_start = b.tile_start.long()
+    w_count = torch.clamp_max(b.tile_count, cfg.tile_cap).long()
+    n_tie_tiles = n_diff_tiles = diff_px = tie_px = 0
+    for (args, depth_s) in ex["slabs"]:
+        feats, _, start, count, gx, _, glob = args
+        sk = blend_fwd(*args[:6], gtile=glob)
+        live = glob < w_count.numel()
+        g = glob.long()[live]
+        cnt = count.long()[live]
+        if not torch.equal(cnt, w_count[g]):
+            raise AssertionError("phase 10: a slab's tile counts differ "
+                                 "from the whole grid's")
+        tile = torch.repeat_interleave(torch.arange(cnt.numel(),
+                                                    device=cnt.device), cnt)
+        j = torch.arange(tile.numel(), device=cnt.device) - (
+            torch.cumsum(cnt, 0) - cnt)[tile]
+        srow = start.long()[live][tile] + j
+        wrow = b.pair_rank.long()[w_start[g][tile] + j]
+        same = (feats[srow] == fs[wrow]).all(dim=-1)
+        same_depth = depth_s[srow] == ex["whole_depth"][wrow]
+        if not bool(same_depth.all()):
+            raise AssertionError("phase 10: a slab tile's depth order "
+                                 "differs from the whole grid's")
+        bad_tile = torch.zeros(cnt.numel(), dtype=torch.bool,
+                               device=cnt.device)
+        bad_tile[tile[~same]] = True      # reordered within equal depths
+        n_tie_tiles += int(bad_tile.sum())
+        px = (sk[live] != whole_state[g]).any(dim=1)          # [t, PIX]
+        diff_px += int(px.sum())
+        tie_px += int(px[bad_tile].sum())
+        n_diff_tiles += int(px.any(dim=1).sum())
+    if diff_px != tie_px:
+        raise AssertionError(f"phase 10: {diff_px - tie_px} stitched pixels "
+                             f"differ from the whole grid outside depth "
+                             f"ties")
+    return {"diff_pixels": diff_px, "depth_tie_pixels": tie_px,
+            "tie_tiles": n_tie_tiles, "diff_tiles": n_diff_tiles}
+
+
+def clone_state(state):
+    """An independent copy of a TrainState (the generator aside)."""
+    from d2dgs_torch.parallel.gauss_train import _map_gauss
+    from d2dgs_torch.train.optim import AdamState
+    from d2dgs_torch.train.trainer import (NODE_FIELDS, mlp_trainable,
+                                           with_node_trainable)
+    adam = lambda o: AdamState({k: v.clone() for k, v in o.mu.items()},
+                               {k: v.clone() for k, v in o.nu.items()},
+                               o.count.clone())
+    nodes = with_node_trainable(
+        state.nodes, {k: getattr(state.nodes, k).detach().clone()
+                      for k in NODE_FIELDS},
+        {k: v.detach().clone() for k, v in mlp_trainable(state.nodes).items()})
+    return _map_gauss(state, lambda x: x.clone())._replace(
+        nodes=nodes, node_opt=adam(state.node_opt),
+        mlp_opt=adam(state.mlp_opt))
+
+
+def sharded_steps(dev, card, cfg, tmp: Path) -> dict:
+    """SHARD_STEPS sharded main-stage steps through NCCL at world size 1
+    (a file store), the slab blend's map live, each from the state the
+    port's main_stage_step starts from, with the same draws: the loss to
+    rtol 2e-4, no overflow; each step timed against main_stage_step's."""
+    import torch.distributed as dist
+    from d2dgs_torch.data.cameras import orbit_camera
+    from d2dgs_torch.models import regularizers as R
+    from d2dgs_torch.parallel import (make_mesh2d, shard_gauss_state,
+                                      sharded_train_step,
+                                      suggest_exchange_cap)
+    from d2dgs_torch.parallel.multihost import maybe_init_distributed
+    from d2dgs_torch.train.config import TrainConfig
+    from d2dgs_torch.train.trainer import main_stage_step
+    from d2dgs_torch.utils.quaternion import quat_normalize
+    maybe_init_distributed("cuda", init_method=f"file://{tmp / 'store'}",
+                           world_size=1, rank=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"phase 10: backend {dist.get_backend()}")
+        mesh = make_mesh2d(1, 1)
+        gauss, nodes, deform_cfg = full_scene(dev)
+        cam = orbit_camera(0.3, 0.25, 4.0, fov=0.69, H=800, W=800, time=0.5,
+                           device=dev)
+        gt = scene_render(gauss, nodes, deform_cfg, cam, cfg)
+        perturb(gauss, seed=6)
+        tcfg = TrainConfig(gaussian_capacity=gauss.capacity)
+        state = training_state(gauss, nodes, seed=5)
+        g = state.gauss
+        with torch.no_grad():
+            cap = suggest_exchange_cap(
+                mesh.gauss_group, [cam], g.xyz, g.get_scaling,
+                quat_normalize(g.rotation, eps=1e-12), g.alive, tcfg.raster,
+                margin=2.0)
+        scheds = phase4_schedules(tcfg, SHARD_STEPS)
+        gen = torch.Generator().manual_seed(12)
+        rows, counts = [], {"blend_fwd": 0, "blend_bwd": 0,
+                            "blend_dense_fwd": 0, "blend_dense_bwd": 0}
+        for i, sched in enumerate(scheds):
+            draws = R.arap_draws(gen, nodes.nodes.shape[0])
+            sh = shard_gauss_state(mesh, clone_state(state))
+            reset_counts()
+            sh, m, sh_ms = synced_ms_pair(lambda: sharded_train_step(
+                sh, [cam], gt[None], sched, tcfg, mesh, cap,
+                arap_draws=draws))
+            c = launch_counts()
+            counts = {k: counts[k] + c[k] for k in counts}
+            if (c["blend_fwd"], c["blend_bwd"]) != (1, 1):
+                raise AssertionError(f"phase 10 step {i}: launches {c}")
+            state, mr, ref_ms = synced_ms_pair(lambda: main_stage_step(
+                state, cam, gt, tcfg, sched, arap_draws=draws))
+            loss, ref = float(m["loss"]), float(mr["loss"])
+            rows.append((loss, ref, sh_ms, ref_ms))
+            if int(m["overflow"]) or not abs(loss - ref) <= 2e-4 * abs(ref):
+                raise AssertionError(f"phase 10 step {i}: sharded loss "
+                                     f"{loss} overflow {int(m['overflow'])}, "
+                                     f"main_stage_step {ref}")
+            log(f"[phase 10] sharded step {i}: L1 {loss:.6f} (main_stage_step"
+                f" {ref:.6f}), {sh_ms:.2f} ms (main_stage_step "
+                f"{ref_ms:.2f} ms)")
+    finally:
+        dist.destroy_process_group()
+    sh_ms = float(np.mean([r[2] for r in rows[1:]]))
+    ref_ms = float(np.mean([r[3] for r in rows[1:]]))
+    log(f"[phase 10] NCCL world size 1, exchange cap {cap}: sharded step "
+        f"{sh_ms:.2f} ms, main_stage_step {ref_ms:.2f} ms (means of steps "
+        f"2-{SHARD_STEPS}, each between two synchronisations) ({card}); "
+        f"max |rel loss diff| "
+        f"{max(abs(r[0] - r[1]) / abs(r[1]) for r in rows):.3g}")
+    return {"launches": counts, "step_ms": sh_ms, "ref_step_ms": ref_ms,
+            "exchange_cap": cap, "l1": [r[0] for r in rows]}
+
+
+def synced_ms_pair(fn):
+    """(the two results of fn(), wall ms between two synchronisations)."""
+    (a, b), ms = synced_ms(fn)
+    return a, b, ms
+
+
+def viewer_frames(dev, card, res6) -> dict:
+    """A loopback SIBR client against phase 6's trained model through
+    Trainer.attach_viewer: VIEWER_FRAMES 800x800 frames on an orbit (the
+    client holds training until its last), each one K1; the last frame's
+    bytes against the same view rendered directly."""
+    import socket
+    import threading
+    from d2dgs_torch.data.cameras import orbit_camera
+    from d2dgs_torch.io.checkpoint import load_train_state
+    from d2dgs_torch.models.deform import deform_gaussians
+    from d2dgs_torch.render.renderer import render
+    from d2dgs_torch.train.trainer import Trainer
+    from d2dgs_torch.viewer.network import _camera_from_message
+    tcfg = res6["cfg"]
+    pts = np.random.RandomState(0).normal(size=(4096, 3)).astype(
+        np.float32) * 0.3
+    cam0 = orbit_camera(0.3, 0.25, 4.0, fov=0.69, H=800, W=800, device=dev)
+    tr = Trainer(tcfg, [cam0], [np.zeros((800, 800, 3), np.float32)], pts,
+                 np.full_like(pts, 0.5), device=dev)
+    tr.state, _, _ = load_train_state(
+        str(res6["scene"].parent / "model" / "ckpt.npz"), tr.state)
+    srv = tr.attach_viewer(port=0)
+    msgs = []
+    for k in range(VIEWER_FRAMES):
+        cam = orbit_camera(0.3 + 0.1 * k, 0.25, 4.0, fov=0.69, H=800, W=800,
+                           device="cpu")
+        view = cam.w2c.numpy().T.copy()
+        view[:, 1] *= -1
+        view[:, 2] *= -1
+        msgs.append({"resolution_x": 800, "resolution_y": 800,
+                     "train": k == VIEWER_FRAMES - 1, "fov_x": 0.69,
+                     "fov_y": 0.69, "z_near": 0.01, "z_far": 100.0,
+                     "keep_alive": True, "scaling_modifier": 1.0,
+                     "time": k / VIEWER_FRAMES,
+                     "view_matrix": view.reshape(-1).tolist(),
+                     "view_projection_matrix": np.eye(4).reshape(-1).tolist()})
+    got = {"frames": [], "ms": []}
+
+    def client():
+        c = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+        for msg in msgs:
+            payload = json.dumps(msg).encode()
+            t0 = time.perf_counter()
+            c.sendall(len(payload).to_bytes(4, "little") + payload)
+            buf = b""
+            while len(buf) < 800 * 800 * 3:
+                buf += c.recv(800 * 800 * 3 - len(buf))
+            n = int.from_bytes(c.recv(4), "little")
+            c.recv(n)
+            got["ms"].append((time.perf_counter() - t0) * 1e3)
+            got["frames"].append(buf)
+        c.close()
+
+    reset_counts()
+    th = threading.Thread(target=client)
+    th.start()
+    deadline = time.time() + 120.0
+    while th.is_alive() and time.time() < deadline:
+        tr._poll_viewer()
+        time.sleep(0.001)
+    th.join(timeout=10)
+    counts = launch_counts()
+    srv.close()
+    if len(got["frames"]) != VIEWER_FRAMES or \
+            counts["blend_fwd"] != VIEWER_FRAMES:
+        raise AssertionError(f"phase 10 viewer: {len(got['frames'])} frames, "
+                             f"launches {counts}")
+    cam = _camera_from_message(msgs[-1], dev)
+    g = tr.state.gauss
+    with torch.no_grad():
+        d = deform_gaussians(tr.state.nodes, tcfg.deform_cfg, g.xyz, cam.time,
+                             feature=g.feature, motion_mask=g.motion_mask)
+        img = render(cam, g, torch.zeros(3, device=dev), d_xyz=d["d_xyz"],
+                     d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+                     cfg=tcfg.raster).image
+        render_ms = cuda_ms(lambda: render(
+            cam, g, torch.zeros(3, device=dev), d_xyz=d["d_xyz"],
+            d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+            cfg=tcfg.raster), reps=5)
+    want = (np.clip(img.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+    frame = np.frombuffer(got["frames"][-1], np.uint8).reshape(want.shape)
+    cover = float((frame.max(axis=-1) > 0).mean())
+    if not np.array_equal(frame, want) or cover <= 0.0:
+        raise AssertionError(f"phase 10 viewer: the last frame differs from "
+                             f"its direct render (coverage {cover})")
+    ms = got["ms"]
+    log(f"[phase 10] viewer: {VIEWER_FRAMES} 800x800 frames of phase 6's "
+        f"model over loopback, each one K1; round trip per frame (ms) "
+        + json.dumps([round(v, 2) for v in ms]) + f"; median "
+        f"{np.median(ms[1:]):.2f} ms, the render alone {render_ms:.2f} ms "
+        f"({card}); the last frame bitwise its direct render, coverage "
+        f"{cover:.3f}")
+    return {"launches": counts, "frame_ms": float(np.median(ms[1:])),
+            "frame_ms_all": ms, "render_ms": render_ms}
+
+
+def phase_10(dev, card, res6, tmp: Path) -> dict:
+    from d2dgs_torch.config import RasterConfig
+    from d2dgs_torch.data.cameras import orbit_camera
+    from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
+    t_start = time.time()
+    cfg = RasterConfig()
+    # ---- (a) the exchange of SHARD_D ranks, each slab through K1/K2 ----
+    gauss, nodes, deform_cfg = full_scene(dev)
+    cam = orbit_camera(0.3, 0.25, 4.0, fov=0.69, H=800, W=800, time=0.5,
+                       device=dev)
+    with torch.no_grad():
+        view = shard_view(gauss, nodes, deform_cfg, cam)
+        ex = emulate_exchange(view, cam, cfg, SHARD_D)
+        if ex["overflow"]:
+            raise AssertionError(f"phase 10: overflow {ex['overflow']}")
+        fs, b = ex["whole"]
+        gx = ex["grid_x"]
+        w_count = torch.clamp_max(b.tile_count, cfg.tile_cap)
+        w_args = (fs, b.pair_rank, b.tile_start, w_count, gx)
+        whole = blend_fwd(*w_args)
+        st = stitched_check(ex, cfg, whole)
+        slab_res, k1_ms, pairs = [], [], []
+        for e, (args, _) in enumerate(ex["slabs"]):
+            binning = launch_binning(*args[1:4])
+            pairs.append(binning.num_pairs)
+            sk, res = check_kernel(f"slab {e} of {SHARD_D}", args[0], binning,
+                                   gx, cfg.chunk, tag="phase 10",
+                                   gtile=args[6])
+            res["pairs"] = binning.num_pairs
+            # the slab's bound: its records, pair ranks, starts, counts
+            # and map in once, its state rows out once
+            res["bound"] = fwd_bound(sk, args[0].numel() * 4 + 4 * (
+                args[1].numel() + 3 * args[2].numel()))
+            slab_res.append(res)
+            k1_ms.append(cuda_ms(lambda: blend_fwd(*args[:6], gtile=args[6]),
+                                 reps=10))
+        e = int(np.argmax(pairs))           # the busiest slab: K2
+        args = ex["slabs"][e][0]
+        binning = launch_binning(*args[1:4])
+        res_k2 = check_backward(
+            f"slab {e} of {SHARD_D}, every tile", args[0], binning, gx,
+            cfg.chunk, slab_res[e].pop("flip_mask"), tag="phase 10",
+            batch=64, gtile=args[6])
+        records, seg = train_buffers(args[3])
+        state = blend_fwd(*args[:5], records=records, segments=seg,
+                          gtile=args[6])
+        g = map_cotangent(state, seed=13)
+        k2_ms = cuda_ms(lambda: blend_bwd(*args[:5], state, records, g, seg,
+                                          gtile=args[6]), reps=10)
+        n_reduce = torch.zeros(1, dtype=torch.int64, device=dev)
+        blend_bwd(*args[:5], state, records, g, seg, n_reduce=n_reduce,
+                  gtile=args[6])
+        k2_slab_bound = k2_bound(args[0], binning, state, records,
+                                 int(n_reduce))
+        for r in slab_res:
+            r.pop("flip_mask", None)
+        # (d) K1 and K2 of the whole grid without the map and with the
+        # identity map, in this call
+        ident = torch.arange(w_count.numel(), dtype=torch.int32, device=dev)
+        recs_w, seg_w = train_buffers(w_count)
+        st_w = blend_fwd(*w_args, records=recs_w, segments=seg_w)
+        g_w = map_cotangent(st_w, seed=14)
+        times = {}
+        for name, gt_map in (("none", None), ("identity", ident),
+                             ("none_again", None)):
+            times[name] = (
+                cuda_ms(lambda: blend_fwd(*w_args, gtile=gt_map), reps=20),
+                cuda_ms(lambda: blend_bwd(*w_args, st_w, recs_w, g_w, seg_w,
+                                          gtile=gt_map), reps=20))
+    counts, ex_cap = ex["counts"], ex["cap"]
+    rec_bytes = (counts * REC_BYTES).tolist()
+    balance = float(max(pairs) / np.mean(pairs))
+    log(f"[phase 10] exchange of {SHARD_D} ranks at t=0.5 ({card}): records "
+        f"per (src, dst) " + json.dumps(counts.tolist()) + f", cap "
+        f"{ex['cap']} ({ex['cap'] * REC_BYTES} B per padded block), bytes "
+        f"per (src, dst) " + json.dumps(rec_bytes) + f"; pairs per slab "
+        + json.dumps(pairs) + f", balance max/mean {balance:.4f}; stitched "
+        f"slabs against the whole-grid K1: {st['diff_pixels']} pixels "
+        f"differ, {st['depth_tie_pixels']} of them in the "
+        f"{st['tie_tiles']} tiles reordered by depth ties")
+    log(f"[phase 10] slab K1 ms " + json.dumps([round(v, 4) for v in k1_ms])
+        + " (bounds " + json.dumps([round(r["bound"]["bound_ms"], 4)
+                                    for r in slab_res])
+        + f" ms), K2 on slab {e} {k2_ms:.4f} ms (bound "
+        f"{k2_slab_bound['bound_ms']:.4f} ms by "
+        f"{k2_slab_bound['bound_by']}); whole grid K1 / K2 ms without "
+        f"the map {times['none'][0]:.4f} / {times['none'][1]:.4f}, with the "
+        f"identity map {times['identity'][0]:.4f} / "
+        f"{times['identity'][1]:.4f}, without again "
+        f"{times['none_again'][0]:.4f} / {times['none_again'][1]:.4f} "
+        f"({card})")
+    del gauss, nodes, view, ex, whole, state, st_w, recs_w, seg_w
+    torch.cuda.empty_cache()
+    # ---- (b) the sharded training step through NCCL ----
+    res_b = sharded_steps(dev, card, cfg, tmp)
+    torch.cuda.empty_cache()
+    # ---- (c) the viewer ----
+    res_c = viewer_frames(dev, card, res6)
+    log(f"[phase 10] phase 10 {time.time() - t_start:.1f} s")
+    return {"slabs": slab_res, "k1_ms": k1_ms, "k2_ms": k2_ms,
+            "k2_bound": k2_slab_bound,
+            "k2_check": res_k2, "pairs": pairs, "balance": balance,
+            "records": counts.tolist(), "record_bytes": rec_bytes,
+            "exchange_cap": ex_cap, "times": times, "stitched": st,
+            "launches_sharded": res_b["launches"],
+            "launches_viewer": res_c["launches"],
+            "sharded": {k: v for k, v in res_b.items() if k != "launches"},
+            "viewer": {k: v for k, v in res_c.items() if k != "launches"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2918,12 +3376,19 @@ def main() -> int:
 
         # ---- phase 8: the optical-flow training path, through the CLI --
         res8 = phase_8(dev, card, res6)
+        torch.cuda.empty_cache()
+
+        # ---- phase 10: the sharded path and the viewer ----
+        res10 = phase_10(dev, card, res6, Path(tmp))
     paths = {"serve": serve_launches, "train": train_launches,
              "trainer": res5b["launches"], "cli": res6["launches"],
              "geometry": res7["launches"], "flow": res8["launches"],
              "fields": res9["launches_fields"], "dqb": res9["launches_dqb"],
-             "edit": res9["launches_edit"]}
+             "edit": res9["launches_edit"],
+             "sharded": res10["launches_sharded"],
+             "viewer": res10["launches_viewer"]}
     needed = {"serve": ("blend_fwd",), "train": ("blend_fwd", "blend_bwd"),
+              "sharded": ("blend_fwd", "blend_bwd"), "viewer": ("blend_fwd",),
               "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
               "cli": ("blend_fwd", "blend_bwd"),
               "geometry": ("blend_fwd", "blend_bwd"),
@@ -2963,7 +3428,19 @@ def main() -> int:
             "hash_step_ms", "hash_live_step_ms", "mlp_step_ms",
             "mlp_live_step_ms", "static_step_ms", "hash_l1",
             "hash_encode", "dqb", "edit", "hash_mesh_faces",
-            "hash_test_psnr")}}, {
+            "hash_test_psnr")},
+        "gtile_check": {
+            "slabs": [{k: r[k] for k in ("pairs", "max_abs_err", "flipped",
+                                         "flips")} | {
+                "bound_ms": r["bound"]["bound_ms"],
+                "bound_by": r["bound"]["bound_by"]} for r in res10["slabs"]],
+            "slab_ms": res10["k1_ms"], "stitched": res10["stitched"],
+            "ms_no_map": [res10["times"]["none"][0],
+                          res10["times"]["none_again"][0]],
+            "ms_identity_map": res10["times"]["identity"][0]},
+        "sharded_path": {k: res10[k] for k in (
+            "pairs", "balance", "records", "record_bytes", "exchange_cap",
+            "sharded", "viewer")}}, {
         "name": "blend_bwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_bwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:691",
@@ -2974,6 +3451,12 @@ def main() -> int:
         "flipped_pixels": {k: v["flipped"] for k, v in bwd_checks.items()},
         "geometry_check": res7["bwd_checks"]["geometry step"],
         "fields_check": res9["bwd_check"],
+        "gtile_check": dict(res10["k2_check"], ms=res10["k2_ms"],
+                            bound_ms=res10["k2_bound"]["bound_ms"],
+                            bound_by=res10["k2_bound"]["bound_by"],
+                            ms_no_map=[res10["times"]["none"][1],
+                                       res10["times"]["none_again"][1]],
+                            ms_identity_map=res10["times"]["identity"][1]),
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": bound2["bound_ms"], "bound_by": bound2["bound_by"],
         "library_ms": None,

@@ -24,8 +24,11 @@ frame time with the solved node positions) for callers that time the CLI.
 ``train`` takes every deform type (``--deform_type node|mlp|hash|
 static``); on a scene with RAFT flow files (``raft_neighbouring/``) it
 adds the optical-flow loss, as the JAX CLI does.  ``edit`` drags control
-nodes of a ``node`` model.  The sharded stage is not ported yet:
-``train --mesh_shape`` / ``--exchange_cap`` raise NotImplementedError.
+nodes of a ``node`` model.  ``train --mesh_shape DxG`` runs the main
+stage on a (data x gauss) rank grid (d2dgs_torch/parallel/): under
+``torchrun --nproc_per_node D*G`` every rank runs the command (NCCL on
+``cuda``, each rank on its ``LOCAL_RANK``'s card; gloo on ``cpu``), and
+rank 0 alone prints, writes checkpoints and renders the test views.
 """
 from __future__ import annotations
 
@@ -140,10 +143,13 @@ def _base_parser(cmd: str, train_flags: bool) -> argparse.ArgumentParser:
                             "<model_path>/profile")
         p.add_argument("--mesh_shape", type=str, default=None,
                        metavar="DxG",
-                       help="the sharded main stage (not ported yet)")
+                       help="run the main stage on a D (data) x G (gauss) "
+                            "rank grid: D*G ranks under torchrun "
+                            "--nproc_per_node, or 1x1 in one process")
         p.add_argument("--exchange_cap", type=int, default=None,
-                       help="the sharded stage's exchange capacity (not "
-                            "ported yet)")
+                       help="records per (source, destination) rank pair "
+                            "of the sharded stage's tile exchange "
+                            "(default: sized from the scene)")
     return p
 
 
@@ -225,12 +231,27 @@ def cmd_train(argv, report=None) -> int:
 
     args = _base_parser("train", train_flags=True).parse_args(argv)
     dev = _device(args)
-    if args.mesh_shape or args.exchange_cap is not None:
-        raise NotImplementedError("--mesh_shape / --exchange_cap: the "
-                                  "sharded main stage is not ported yet "
-                                  "(ROADMAP.md)")
+    primary, own_group = True, False
+    if args.mesh_shape:
+        import torch.distributed as tdist
+
+        from .parallel.multihost import (is_primary, local_device,
+                                         maybe_init_distributed)
+        mesh_shape = tuple(int(x) for x in
+                           args.mesh_shape.lower().split("x"))
+        own_group = not tdist.is_initialized()
+        _, world = maybe_init_distributed(dev)
+        own_group = own_group and tdist.is_initialized()
+        need = mesh_shape[0] * mesh_shape[1]
+        if world != need:
+            raise SystemExit(
+                f"d2dgs_torch: --mesh_shape {args.mesh_shape} needs {need} "
+                f"ranks (torchrun --nproc_per_node {need}); this run has "
+                f"{world}")
+        dev, primary = local_device(dev), is_primary()
     cfg = config_from_args(args)
-    save_cfg_args(args.model_path, args)
+    if primary:
+        save_cfg_args(args.model_path, args)
     info = _load_scene(args, dev)
 
     bg = np.full(3, 1.0 if cfg.white_background else 0.0, np.float32)
@@ -238,11 +259,13 @@ def cmd_train(argv, report=None) -> int:
     gts = [s.gt(bg) for s in info.train_cameras]
 
     writer = None
-    if args.tensorboard:
+    if args.tensorboard and primary:
         from tensorboardX import SummaryWriter
         writer = SummaryWriter(args.model_path)
 
     def log_fn(m):
+        if not primary:
+            return
         line = " ".join(f"{k}={v:.5g}" if isinstance(v, float) else
                         f"{k}={v}" for k, v in m.items())
         print(line, flush=True)
@@ -265,6 +288,11 @@ def cmd_train(argv, report=None) -> int:
     if args.resume:
         tr.state, tr.iteration, tr.iteration_node = load_train_state(
             args.resume, tr.state)
+    if args.mesh_shape:
+        tr.enable_sharded_training(mesh_shape, exchange_cap=args.exchange_cap)
+        log_fn({"sharded": args.mesh_shape, "exchange_cap": tr.exchange_cap})
+        if report is not None:
+            report["exchange_cap"] = tr.exchange_cap
 
     best_psnr, total = -1.0, cfg.iterations + cfg.iterations_node_rendering
     test_iters = set(args.test_iterations)
@@ -303,9 +331,12 @@ def cmd_train(argv, report=None) -> int:
         if m and tick % args.log_every == 0:
             log_fn(dict({k: float(v) for k, v in m.items()},
                         iter=tr.iteration, iter_node=tr.iteration_node))
-        if it in test_iters and info.test_cameras:
+        testing = it in test_iters and bool(info.test_cameras)
+        if testing or it in save_iters:
+            state = tr.full_state()    # sharded: gathered on every rank
+        if testing and primary:
             res = render_test_set(
-                info.test_cameras, tr.state.gauss, tr.state.nodes,
+                info.test_cameras, state.gauss, state.nodes,
                 cfg.node_cfg, cfg.raster, bg=_bg(cfg, dev),
                 save_images=False, deform_cfg=cfg.deform_cfg,
                 return_images=5)
@@ -336,17 +367,21 @@ def cmd_train(argv, report=None) -> int:
                 best_psnr = mean["psnr"]          # (train_gui.py:395-407)
                 save_train_state(
                     os.path.join(args.model_path, "ckpt_best.npz"),
-                    tr.state, tr.iteration, tr.iteration_node)
-        if it in save_iters:
+                    state, tr.iteration, tr.iteration_node)
+        if it in save_iters and primary:
             d = os.path.join(args.model_path,
                              f"point_cloud/iteration_{it}")
             save_gaussian_ply(os.path.join(d, "point_cloud.ply"),
-                              tr.state.gauss)
+                              state.gauss)
             save_train_state(os.path.join(args.model_path, "ckpt.npz"),
-                             tr.state, tr.iteration, tr.iteration_node)
-    save_train_state(os.path.join(args.model_path, "ckpt.npz"),
-                     tr.state, tr.iteration, tr.iteration_node)
-    print(f"training done; best test PSNR {best_psnr:.3f}")
+                             state, tr.iteration, tr.iteration_node)
+    state = tr.full_state()
+    if primary:
+        save_train_state(os.path.join(args.model_path, "ckpt.npz"),
+                         state, tr.iteration, tr.iteration_node)
+        print(f"training done; best test PSNR {best_psnr:.3f}")
+    if own_group:
+        tdist.destroy_process_group()
     return 0
 
 

@@ -11,6 +11,11 @@
 //    `pair_rank[tile_start[t] + i]`, and its gradient is summed into that
 //    row of d_feats [N, NFEAT] over pixels and tiles; the plain PyTorch
 //    version is `blend_tiles_plain_vjp` in d2dgs_torch/ops/cuda/blend.py.
+//    An optional `gtile` [T] (null: the identity) gives each output slot's
+//    place in the image grid, as the TPU kernel's `gtile_ref` does, for a
+//    slab of tiles taken from a larger grid (the sharded render's
+//    interleaved tiles, d2dgs_torch/parallel/gauss_shard.py); only the
+//    pixel coordinates read it.
 //  * K4, `blend_dense_bwd_launch`, replaces `_bwd_kernel` (launcher
 //    `_bwd_call`, the VJP of the dense (tile, chunk) grid).  Tile t's i-th
 //    pair is row t * tile_cap + i of gdata and of d_gdata [T, tile_cap,
@@ -179,6 +184,7 @@ __global__ void __launch_bounds__(PIX, 3)
 blend_bwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
                  Rows rows_of,
                  int grid_x,
+                 const int* __restrict__ gtile,        // [T] or null
                  const int* __restrict__ items,        // [I, 2]
                  const int* __restrict__ ckpt_off,     // [T]
                  const float* __restrict__ ckpt,       // [n_bound, NCKPT, PIX]
@@ -203,8 +209,10 @@ blend_bwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
   if (item_ns != nullptr && tid == 0) t_start = global_ns();
   const int tile = items[2 * item];
   const int seg = items[2 * item + 1];
-  const float px = (float)((tile % grid_x) * TILE + (tid % TILE)) + 0.5f;
-  const float py = (float)((tile / grid_x) * TILE + (tid / TILE)) + 0.5f;
+  // the slot's place in the image grid (a sharded slab's global tile)
+  const int gt = gtile != nullptr ? gtile[tile] : tile;
+  const float px = (float)((gt % grid_x) * TILE + (tid % TILE)) + 0.5f;
+  const float py = (float)((gt / grid_x) * TILE + (tid / TILE)) + 0.5f;
   const int* rec = records + (size_t)tile * NREC * PIX + tid;
   const int last = rec[0];
   const int med = rec[PIX];
@@ -409,16 +417,17 @@ blend_bwd_kernel(const float* __restrict__ feats,      // rows of NFEAT
 
 extern "C" int blend_bwd_launch(const float* feats, const int* pair_rank,
                                 const int* tile_start, int num_items,
-                                int grid_x, const int* items,
-                                const int* ckpt_off, const float* ckpt,
+                                int grid_x, const int* gtile,
+                                const int* items, const int* ckpt_off,
+                                const float* ckpt,
                                 const float* state, const int* records,
                                 const float* g_state, float* d_feats,
                                 unsigned long long* n_reduce,
                                 long long* item_ns, void* stream) {
   if (num_items <= 0) return 0;
   blend_bwd_kernel<RankedRows><<<num_items, PIX, 0, (cudaStream_t)stream>>>(
-      feats, RankedRows{pair_rank, tile_start}, grid_x, items, ckpt_off,
-      ckpt, state, records, g_state, d_feats, n_reduce, item_ns);
+      feats, RankedRows{pair_rank, tile_start}, grid_x, gtile, items,
+      ckpt_off, ckpt, state, records, g_state, d_feats, n_reduce, item_ns);
   return (int)cudaGetLastError();
 }
 
@@ -432,8 +441,8 @@ extern "C" int blend_dense_bwd_launch(const float* gdata, int tile_cap,
                                       long long* item_ns, void* stream) {
   if (num_items <= 0) return 0;
   blend_bwd_kernel<DenseRows><<<num_items, PIX, 0, (cudaStream_t)stream>>>(
-      gdata, DenseRows{tile_cap}, grid_x, items, ckpt_off, ckpt, state,
-      records, g_state, d_gdata, n_reduce, item_ns);
+      gdata, DenseRows{tile_cap}, grid_x, nullptr, items, ckpt_off, ckpt,
+      state, records, g_state, d_gdata, n_reduce, item_ns);
   return (int)cudaGetLastError();
 }
 

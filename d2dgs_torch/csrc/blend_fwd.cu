@@ -7,7 +7,11 @@
 //    the work queue `build_work_queue` that fed it): tile t's i-th pair is
 //    the sorted feature row `feats[pair_rank[tile_start[t] + i]]`
 //    (`RankedRows`); the plain PyTorch version is `blend_tiles_plain` in
-//    d2dgs_torch/ops/tiled_raster.py;
+//    d2dgs_torch/ops/tiled_raster.py.  An optional `gtile` [T] (null: the
+//    identity) gives each output slot's place in the image grid, as the
+//    TPU kernel's `gtile_ref` does, for a slab of tiles taken from a
+//    larger grid (the sharded render, d2dgs_torch/parallel/gauss_shard.py);
+//    only the pixel coordinates read it;
 //  * K3, `blend_dense_fwd_launch`, replaces `_fwd_kernel` (launcher
 //    `_fwd_call`, the dense (tile, chunk) grid fed by `build_gdata`): tile
 //    t's i-th pair is row `gdata[t, i]` of the dense [T, tile_cap, 18]
@@ -155,6 +159,14 @@ __device__ __forceinline__ long long global_ns() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
+}
+
+// The place in the image grid of output slot `tile`: the slot itself, or
+// gtile[tile] where a launch blends a slab of tiles taken from a larger
+// grid (the sharded render's interleaved tiles, the TPU kernel's
+// `gtile_ref`).  Only the pixel coordinates read it.
+__device__ __forceinline__ int grid_tile(const int* gtile, int tile) {
+  return gtile != nullptr ? gtile[tile] : tile;
 }
 
 __device__ __forceinline__ int segments_of(int count) {
@@ -452,7 +464,8 @@ fwd_layout(const int* __restrict__ counts, int num_tiles, int max_units,
 template <class Rows>
 __global__ void __launch_bounds__(PIX)
 fwd_pass_a(const float* __restrict__ feats, Rows rows_of, int grid_x,
-           Layout lay, float* __restrict__ cand,
+           const int* __restrict__ gtile, Layout lay,
+           float* __restrict__ cand,
            unsigned long long* __restrict__ n_pass_a,
            long long* __restrict__ unit_ns, int n_timed) {
   __shared__ int s_row[UNIT];
@@ -468,8 +481,9 @@ fwd_pass_a(const float* __restrict__ feats, Rows rows_of, int grid_x,
   const int nb = min(UNIT, rows_of.count(tile) - k * UNIT);
   stage<Rows, true>(feats, rows_of, rows_of.base(tile), k * UNIT, nb,
                     (nb + 31) / 32 * 32, s_row, s_feat, tid);
-  const float x0 = (float)((tile % grid_x) * TILE) + 0.5f;
-  const float y0 = (float)((tile / grid_x) * TILE) + 0.5f;
+  const int gt = grid_tile(gtile, tile);
+  const float x0 = (float)((gt % grid_x) * TILE) + 0.5f;
+  const float y0 = (float)((gt / grid_x) * TILE) + 0.5f;
   const float px = x0 + (float)(tid % TILE);
   const float py = y0 + (float)(tid / TILE);
   // the pairs each warp evaluates: thread tid tests pair tid % UNIT for
@@ -533,7 +547,8 @@ __device__ int first_kept(const float* __restrict__ feats,
 template <class Rows, bool kTrain>
 __global__ void __launch_bounds__(PIX)
 fwd_pass_b(const float* __restrict__ feats, Rows rows_of, int grid_x,
-           Layout lay, const float* __restrict__ cand,
+           const int* __restrict__ gtile, Layout lay,
+           const float* __restrict__ cand,
            float* __restrict__ part,
            float* __restrict__ state,            // [T, NSTATE, PIX]
            int* __restrict__ records,            // [T, NREC, PIX]
@@ -556,8 +571,9 @@ fwd_pass_b(const float* __restrict__ feats, Rows rows_of, int grid_x,
   const int start = rows_of.base(tile);
   const int p0 = seg * SEG;
   const int nb = max(0, min(SEG, count - p0));
-  const float px = (float)((tile % grid_x) * TILE + (tid % TILE)) + 0.5f;
-  const float py = (float)((tile / grid_x) * TILE + (tid / TILE)) + 0.5f;
+  const int gt = grid_tile(gtile, tile);
+  const float px = (float)((gt % grid_x) * TILE + (tid % TILE)) + 0.5f;
+  const float py = (float)((gt / grid_x) * TILE + (tid / TILE)) + 0.5f;
   const int slot0 = n_seg > 1 ? lay.slot_start()[tile] : 0;
 
   // T entering the segment: the ordered product of the earlier units'
@@ -736,7 +752,8 @@ fwd_pass_b(const float* __restrict__ feats, Rows rows_of, int grid_x,
 
 template <class Rows>
 int launch(const float* feats, Rows rows, const int* counts, int num_tiles,
-           int grid_x, int max_items, int max_units, float* state,
+           int grid_x, const int* gtile, int max_items, int max_units,
+           float* state,
            int* records, float* ckpt, const int* ckpt_off, int* layout,
            float* cand, float* part, unsigned long long* n_pass_a,
            long long* unit_ns, int n_units_timed, long long* item_ns,
@@ -749,18 +766,19 @@ int launch(const float* feats, Rows rows, const int* counts, int num_tiles,
   if (err != cudaSuccess) return (int)err;
   if (max_units > 0) {
     fwd_pass_a<Rows><<<max_units, PIX, 0, stream>>>(
-        feats, rows, grid_x, lay, cand, n_pass_a, unit_ns, n_units_timed);
+        feats, rows, grid_x, gtile, lay, cand, n_pass_a, unit_ns,
+        n_units_timed);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (records != nullptr)
     fwd_pass_b<Rows, true><<<max_items, PIX, 0, stream>>>(
-        feats, rows, grid_x, lay, cand, part, state, records, ckpt, ckpt_off,
-        item_ns, n_items_timed);
+        feats, rows, grid_x, gtile, lay, cand, part, state, records, ckpt,
+        ckpt_off, item_ns, n_items_timed);
   else
     fwd_pass_b<Rows, false><<<max_items, PIX, 0, stream>>>(
-        feats, rows, grid_x, lay, cand, part, state, nullptr, nullptr,
-        nullptr, item_ns, n_items_timed);
+        feats, rows, grid_x, gtile, lay, cand, part, state, nullptr,
+        nullptr, nullptr, item_ns, n_items_timed);
   return (int)cudaGetLastError();
 }
 
@@ -768,17 +786,18 @@ int launch(const float* feats, Rows rows, const int* counts, int num_tiles,
 
 extern "C" int blend_fwd_launch(const float* feats, const int* pair_rank,
                                 const int* tile_start, const int* tile_count,
-                                int num_tiles, int grid_x, int max_items,
-                                int max_units, float* state, int* records,
-                                float* ckpt, const int* ckpt_off, int* layout,
+                                int num_tiles, int grid_x, const int* gtile,
+                                int max_items, int max_units, float* state,
+                                int* records, float* ckpt,
+                                const int* ckpt_off, int* layout,
                                 float* cand, float* part,
                                 unsigned long long* n_pass_a,
                                 long long* unit_ns, int n_units_timed,
                                 long long* item_ns, int n_items_timed,
                                 void* stream) {
   return launch(feats, RankedRows{pair_rank, tile_start, tile_count},
-                tile_count, num_tiles, grid_x, max_items, max_units, state,
-                records, ckpt, ckpt_off, layout, cand, part, n_pass_a,
+                tile_count, num_tiles, grid_x, gtile, max_items, max_units,
+                state, records, ckpt, ckpt_off, layout, cand, part, n_pass_a,
                 unit_ns, n_units_timed, item_ns, n_items_timed,
                 (cudaStream_t)stream);
 }
@@ -794,9 +813,9 @@ extern "C" int blend_dense_fwd_launch(const float* gdata, const int* counts,
                                       long long* item_ns, int n_items_timed,
                                       void* stream) {
   return launch(gdata, DenseRows{counts, tile_cap}, counts, num_tiles,
-                grid_x, max_items, max_units, state, records, ckpt, ckpt_off,
-                layout, cand, part, n_pass_a, unit_ns, n_units_timed, item_ns,
-                n_items_timed, (cudaStream_t)stream);
+                grid_x, nullptr, max_items, max_units, state, records, ckpt,
+                ckpt_off, layout, cand, part, n_pass_a, unit_ns,
+                n_units_timed, item_ns, n_items_timed, (cudaStream_t)stream);
 }
 
 extern "C" const char* blend_fwd_error_string(int code) {

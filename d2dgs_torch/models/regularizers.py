@@ -126,6 +126,17 @@ def _estimate_rotation_sampled(source, target, nn_idx_s, weight_s,
     return torch.where((det <= 0)[:, None, None], R_fix, R)
 
 
+def estimate_rotation(source: torch.Tensor, target: torch.Tensor,
+                      nn_idx: torch.Tensor, weight: torch.Tensor):
+    """Per-vertex weighted Procrustes rotations of every vertex
+    (deform_utils.py:131-167), det-flip corrected.  source/target: [M,3],
+    nn_idx/weight: [M,K].  Returns R [M,3,3] with target edges ~ R @
+    source edges."""
+    return _estimate_rotation_sampled(
+        source, target, nn_idx, weight,
+        torch.arange(source.shape[0], device=source.device))
+
+
 def arap_energy(nodes_seq: torch.Tensor, nn_idx, weight, sample_idx=None):
     """cal_arap_error (deform_utils.py:177-207): sum over t>0 of weighted
     stretch ||E_t - R E_0||^2 with no-grad best-fit rotations.

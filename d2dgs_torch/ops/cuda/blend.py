@@ -133,7 +133,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     timers = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + timers
+        ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 9 + timers
     lib.blend_fwd_launch.restype = ctypes.c_int
     lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
         ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + timers
@@ -147,7 +148,7 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = build.load(SOURCE_BWD)
     lib.blend_bwd_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
     lib.blend_bwd_launch.restype = ctypes.c_int
     lib.blend_dense_bwd_launch.argtypes = [ctypes.c_void_p] + [
         ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
@@ -169,9 +170,12 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_pairs(feats_sorted, pair_rank, tile_start, tile_count, grid_x):
+def _check_pairs(feats_sorted, pair_rank, tile_start, tile_count, grid_x,
+                 gtile=None):
     """Device, type and shape checks shared by both kernels; returns the
-    tile count."""
+    tile count.  Without ``gtile`` the tiles must form whole rows of a
+    grid ``grid_x`` tiles wide; with it (int32 [T], each slot's tile in
+    that grid) they may be any slab of it."""
     dev = feats_sorted.device
     _check("feats_sorted", feats_sorted, torch.float32, 2, dev)
     _check("pair_rank", pair_rank, torch.int32, 1, dev)
@@ -181,8 +185,13 @@ def _check_pairs(feats_sorted, pair_rank, tile_start, tile_count, grid_x):
         raise ValueError(f"feats_sorted must be [N, {NFEAT}], got "
                          f"{tuple(feats_sorted.shape)}")
     num_tiles = tile_start.shape[0]
+    if gtile is not None:
+        _check("gtile", gtile, torch.int32, 1, dev)
+        if gtile.shape[0] != num_tiles:
+            raise ValueError(f"gtile {tuple(gtile.shape)} does not give the "
+                             f"place of {num_tiles} tiles")
     if tile_count.shape[0] != num_tiles or grid_x <= 0 \
-            or num_tiles % grid_x != 0:
+            or (gtile is None and num_tiles % grid_x != 0):
         raise ValueError(f"tile arrays {tuple(tile_start.shape)}/"
                          f"{tuple(tile_count.shape)} do not form a grid "
                          f"{grid_x} tiles wide")
@@ -240,10 +249,14 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               n_pass_a: torch.Tensor | None = None,
               unit_ns: torch.Tensor | None = None,
               item_ns: torch.Tensor | None = None,
-              report: dict | None = None) -> torch.Tensor:
+              report: dict | None = None,
+              gtile: torch.Tensor | None = None) -> torch.Tensor:
     """Blend every tile: feats_sorted [N, NFEAT] float32 (depth order),
     pair_rank [B], tile_start [T], tile_count [T] int32 -> state rows
-    [T, NSTATE, PIX] float32.
+    [T, NSTATE, PIX] float32.  ``gtile`` (optional int32 [T], the TPU
+    kernel's global-tile map) gives output slot t the pixels of tile
+    gtile[t] of the grid ``grid_x`` tiles wide (default: slot t is tile t);
+    everything else stays per slot.
 
     Training mode (``records`` [T, NREC, PIX] int32 and ``segments``,
     ``segment_layout(tile_count)``, both given): K1 also writes K2's
@@ -266,17 +279,19 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
-                                 tile_count, grid_x, chunk=chunk)
+                                 tile_count, grid_x, chunk=chunk,
+                                 tile_ids=gtile)
     dev = feats_sorted.device
     if dev.type != "cuda":
         raise ValueError(f"blend_fwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
-                             grid_x)
+                             grid_x, gtile)
     lib = _lib()
     state = _fwd_launch(
         lib.blend_fwd_launch,
         (feats_sorted.data_ptr(), pair_rank.data_ptr(),
-         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x),
+         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
+         _ptr(gtile)),
         num_tiles, forward_work(num_tiles, pair_rank.shape[0], segments),
         records, segments, n_pass_a, unit_ns, item_ns, report, dev,
         "blend_fwd")
@@ -353,24 +368,28 @@ def blend_tiles_plain_vjp(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
                           tile_start: torch.Tensor, tile_count: torch.Tensor,
                           grid_x: int, g_state: torch.Tensor,
                           tiles: torch.Tensor | None = None,
-                          chunk: int = 64) -> torch.Tensor:
+                          chunk: int = 64,
+                          gtile: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K2: the gradient of <state, g_state> in
     feats_sorted [N, NFEAT], by autograd through ``blend_tiles_plain``.
 
     The cotangents of ``DEAD_ROWS`` are taken as zero, as K2 does.
-    ``tiles`` (optional, int64 tile indices) restricts the blend to those
-    tiles, at their true pixel coordinates, so the plain version can be
+    ``tiles`` (optional, int64 slot indices) restricts the blend to those
+    slots, at their true pixel coordinates, so the plain version can be
     held against K2 on a full-width view without saving every tile's
-    chunk intermediates."""
+    chunk intermediates.  ``gtile`` (optional int32 [T]) places slot t at
+    tile gtile[t] of the grid, as ``blend_fwd``'s does."""
     g = g_state.clone()
     g[:, list(DEAD_ROWS)] = 0.0
+    coords = gtile
     if tiles is not None:
         tile_start, tile_count, g = tile_start[tiles], tile_count[tiles], \
             g[tiles]
+        coords = tiles if gtile is None else gtile[tiles]
     with torch.enable_grad():
         f = feats_sorted.detach().requires_grad_()
         state = blend_tiles_plain(f, pair_rank, tile_start, tile_count,
-                                  grid_x, chunk=chunk, tile_ids=tiles)
+                                  grid_x, chunk=chunk, tile_ids=coords)
         if not state.requires_grad:       # no pairs in these tiles
             return torch.zeros_like(f)
         d_feats, = torch.autograd.grad(state, f, g)
@@ -726,10 +745,12 @@ def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
               grid_x: int, state: torch.Tensor, records: torch.Tensor,
               g_state: torch.Tensor, segments: Segments | None = None,
               chunk: int = 64, n_reduce: torch.Tensor | None = None,
-              item_ns: torch.Tensor | None = None) -> torch.Tensor:
-    """Gradient of the blend in feats_sorted: K1's inputs, its ``state``,
-    ``records`` and ``segments`` (training mode), and the cotangent
-    ``g_state`` [T, NSTATE, PIX] -> d_feats_sorted [N, NFEAT] float32.
+              item_ns: torch.Tensor | None = None,
+              gtile: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of the blend in feats_sorted: K1's inputs (``gtile`` as
+    ``blend_fwd`` took it), its ``state``, ``records`` and ``segments``
+    (training mode), and the cotangent ``g_state`` [T, NSTATE, PIX] ->
+    d_feats_sorted [N, NFEAT] float32.
 
     On CPU tensors this is ``blend_tiles_plain_vjp`` (``state``,
     ``records`` and ``segments`` unused); on CUDA tensors it launches the
@@ -741,12 +762,13 @@ def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain_vjp(feats_sorted, pair_rank, tile_start,
-                                     tile_count, grid_x, g_state, chunk=chunk)
+                                     tile_count, grid_x, g_state, chunk=chunk,
+                                     gtile=gtile)
     dev = feats_sorted.device
     if dev.type != "cuda":
         raise ValueError(f"blend_bwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
-                             grid_x)
+                             grid_x, gtile)
     n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
     if n_reduce is not None:
         _check("n_reduce", n_reduce, torch.int64, 1, dev)
@@ -760,7 +782,7 @@ def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.blend_bwd_launch(
             feats_sorted.data_ptr(), pair_rank.data_ptr(),
-            tile_start.data_ptr(), n_items, grid_x,
+            tile_start.data_ptr(), n_items, grid_x, _ptr(gtile),
             segments.items.data_ptr(), segments.ckpt_off.data_ptr(),
             segments.ckpt.data_ptr(), state.data_ptr(), records.data_ptr(),
             g_state.data_ptr(), d_feats.data_ptr(), _ptr(n_reduce),
@@ -782,16 +804,16 @@ class BlendTiles(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, feats_sorted, pair_rank, tile_start, tile_count,
-                grid_x, chunk=64):
+                grid_x, chunk=64, gtile=None):
         records = torch.empty((tile_start.shape[0], NREC, PIX),
                               dtype=torch.int32, device=feats_sorted.device)
         segments = segment_layout(tile_count)
         state = blend_fwd(feats_sorted, pair_rank, tile_start, tile_count,
                           grid_x, chunk=chunk, records=records,
-                          segments=segments)
+                          segments=segments, gtile=gtile)
         ctx.save_for_backward(feats_sorted, pair_rank, tile_start,
                               tile_count, state, records, *segments.tensors)
-        ctx.grid_x, ctx.chunk = grid_x, chunk
+        ctx.grid_x, ctx.chunk, ctx.gtile = grid_x, chunk, gtile
         return state
 
     @staticmethod
@@ -801,5 +823,5 @@ class BlendTiles(torch.autograd.Function):
         d_feats = blend_bwd(feats_sorted, pair_rank, tile_start, tile_count,
                             ctx.grid_x, state, records,
                             g_state.contiguous(), Segments(*segments),
-                            chunk=ctx.chunk)
-        return d_feats, None, None, None, None, None
+                            chunk=ctx.chunk, gtile=ctx.gtile)
+        return d_feats, None, None, None, None, None, None

@@ -16,6 +16,7 @@ trainer's ``precompile`` has no counterpart.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -49,8 +50,32 @@ def gauss_trainable(p: GaussianParams) -> dict:
     return {k: getattr(p, k) for k in GAUSS_FIELDS}
 
 
+def with_trainable(p: GaussianParams, t: dict) -> GaussianParams:
+    """Gaussians like ``p`` whose trainable leaves are ``t`` (names of
+    GAUSS_FIELDS; the leaves not named stay ``p``'s), sharing their
+    storage: the JAX package's functional update (the port's steps update
+    in place)."""
+    return GaussianParams(
+        **{k: t.get(k, getattr(p, k)).detach() for k in GAUSS_FIELDS},
+        alive=p.alive, active_sh_degree=p.active_sh_degree,
+        with_motion_mask=p.with_motion_mask,
+        isotropic_shared_scale=p.isotropic_shared_scale)
+
+
 def node_trainable(p: NodeParams) -> dict:
     return {k: getattr(p, k) for k in NODE_FIELDS}
+
+
+def with_node_trainable(p: NodeParams, t: dict, mlp) -> NodeParams:
+    """Nodes like ``p`` with the node leaves ``t`` (NODE_FIELDS) and the
+    deform field ``mlp``: a module, or its parameters by name
+    (``mlp_trainable``'s form), which then fill a copy of ``p.mlp``."""
+    if not isinstance(mlp, torch.nn.Module):
+        values, mlp = mlp, copy.deepcopy(p.mlp)
+        for k, prm in mlp.named_parameters():
+            prm.data = values[k].detach()
+    return NodeParams(**{k: t.get(k, getattr(p, k)).detach()
+                         for k in NODE_FIELDS}, mlp=mlp, alive=p.alive)
 
 
 def mlp_trainable(p: NodeParams) -> dict:
@@ -499,8 +524,11 @@ class Trainer:
     ``np.random.RandomState(seed)`` as the JAX trainer does, so both pick
     the same cameras; model draws come from the state's
     ``torch.Generator``.  ``precompile`` has no counterpart (PyTorch runs
-    eagerly).  The SIBR viewer and the sharded main stage are not ported
-    yet: asking for them raises ``NotImplementedError``."""
+    eagerly).  ``enable_sharded_training`` runs the main stage on a (data
+    x gauss) rank grid (d2dgs_torch/parallel/): every rank builds the same
+    Trainer from the same seed, then holds its shard of the Gaussians;
+    ``full_state`` gathers them.  ``attach_viewer`` serves SIBR viewer
+    frames at the top of each step."""
 
     def __init__(self, cfg: TrainConfig, cameras, images,
                  init_points, init_colors, cameras_extent: float = 5.0,
@@ -545,15 +573,88 @@ class Trainer:
             lr_init=0.1, lr_final=1e-15, lr_delay_mult=0.01,
             max_steps=20_000)
         self._time_order = np.argsort(self._times).tolist()
+        # optional SIBR remote viewer (network_gui poll at the top of each
+        # train step, train_gui.py:216-229); attach via attach_viewer()
         self.viewer = None
+        # optional sharded main stage (enable_sharded_training)
+        self._sharded_step = None
+        self._mesh = None
+        self._sharded_motion = False
 
     def enable_sharded_training(self, mesh_shape, exchange_cap=None):
-        raise NotImplementedError(
-            "the sharded main stage is not ported yet (ROADMAP.md)")
+        """Run the main stage on a (data x gauss) rank grid with the
+        tile-binning exchange (parallel/gauss_train.py): each step takes
+        mesh_shape[0] cameras, their gradients averaged into one Adam
+        update, the densify statistics per view.  Every rank of a process
+        group of mesh_shape[0] * mesh_shape[1] ranks (none for 1 x 1)
+        calls it on its identical Trainer; it then holds its shard.  The
+        node stage stays replicated.  ``exchange_cap`` None sizes the
+        exchange from the measured per-destination record counts of a
+        few cameras, with a margin of 2."""
+        from ..parallel import (make_mesh2d, make_sharded_train_step,
+                                shard_gauss_state, suggest_exchange_cap)
+        from ..utils.quaternion import quat_normalize
+        n_data, n_gauss = mesh_shape
+        mesh = make_mesh2d(n_data, n_gauss)
+        self.state = shard_gauss_state(mesh, self.state)
+        if exchange_cap is None:
+            g = self.state.gauss
+            sample = [self.cameras[i] for i in
+                      range(0, len(self.cameras),
+                            max(len(self.cameras) // 4, 1))][:4]
+            with torch.no_grad():
+                exchange_cap = suggest_exchange_cap(
+                    mesh.gauss_group, sample, g.xyz, g.get_scaling,
+                    quat_normalize(g.rotation, eps=1e-12), g.alive,
+                    self.cfg.raster, margin=2.0)
+            self.log_fn({"exchange_cap": exchange_cap})
+        self._sharded_motion = (self.alphas is not None
+                                and self.cfg.gt_alpha_mask_as_dynamic_mask
+                                and not self.cfg.no_motion_mask_loss)
+        self._sharded_step = make_sharded_train_step(
+            mesh, self.cfg, exchange_cap=exchange_cap,
+            motion_loss=self._sharded_motion)
+        self._mesh = mesh
+        self.exchange_cap = exchange_cap
+        return mesh
+
+    def full_state(self) -> TrainState:
+        """The whole state: with sharded training, gathered from every
+        rank's shard (a collective: every rank calls it)."""
+        if self._mesh is None:
+            return self.state
+        from ..parallel import gather_gauss_state
+        return gather_gauss_state(self._mesh, self.state)
 
     def attach_viewer(self, host: str = "127.0.0.1", port: int = 6009):
-        raise NotImplementedError(
-            "the SIBR viewer is not ported yet (ROADMAP.md)")
+        if self._mesh is not None:
+            raise ValueError("the viewer renders the whole state: attach it "
+                             "to a Trainer that is not sharded")
+        from ..viewer import ViewerServer
+        self.viewer = ViewerServer(host, port, device=self.device)
+        return self.viewer
+
+    def _poll_viewer(self):
+        if self.viewer is None:
+            return
+
+        def render_fn(cam, scaling_modifier):
+            g = self.state.gauss
+            d = deform_gaussians(self.state.nodes, self.cfg.deform_cfg,
+                                 g.xyz, cam.time, feature=g.feature,
+                                 motion_mask=g.motion_mask)
+            out = render(cam, g, torch.zeros(3, device=self.device),
+                         d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
+                         d_scaling=d["d_scaling"],
+                         scaling_modifier=scaling_modifier,
+                         cfg=self.cfg.raster)
+            return out.image
+
+        # serve frames until the client hands control back to training
+        while True:
+            st = self.viewer.poll(render_fn)
+            if not st["connected"] or st["do_training"]:
+                break
 
     def _refill_stack(self):
         """Progressive time-window curriculum (train_gui.py:238-253)."""
@@ -679,17 +780,31 @@ class Trainer:
         self.iteration_node += 1
         return metrics
 
+    def _sharded_iteration(self, sched):
+        """One main-stage step on the rank grid: n_data cameras (the same
+        picks on every rank), the full loss set, the densify statistics."""
+        n_data = self._mesh.n_data
+        picks = [self._pick_camera() for _ in range(n_data)]
+        cams = [p[0] for p in picks]
+        gts = torch.stack([p[1] for p in picks])
+        if self._sharded_motion:
+            sched = dict(sched, lambda_motion=self._motion_lambda(
+                self.iteration))
+            alphas = torch.stack([
+                p[2] if p[2] is not None else
+                torch.zeros(p[1].shape[:2] + (1,), device=self.device)
+                for p in picks])
+            return self._sharded_step(self.state, cams, gts, sched, alphas)
+        return self._sharded_step(self.state, cams, gts, sched)
+
     # --- stage 2 ---
     def main_iteration(self):
         cfg = self.cfg
         it = self.iteration
         if it % cfg.oneup_sh_degree_step == 0:
             self.state = oneup_sh(self.state, cfg)
-        cam, gt, alpha = self._pick_camera()
         lam_arap = R.landmark_interpolate(
             *cfg.node_cfg.lambda_arap_schedule, step=max(0, it))
-        lam_motion = self._motion_lambda(it)
-        motion = lam_motion > 0 and alpha is not None
         late = it > cfg.normal_dist_from_iter
         sched = dict(
             warm=1.0 if it < cfg.warm_up else 0.0,
@@ -698,6 +813,14 @@ class Trainer:
             lambda_arap=float(lam_arap),
             deform_lr=self.deform_sched(it), xyz_lr=self.xyz_sched(it),
             step=it)
+        if self._sharded_step is not None:
+            self.state, metrics = self._sharded_iteration(sched)
+            self._post_main_maintenance(it)
+            self.iteration += 1
+            return metrics
+        cam, gt, alpha = self._pick_camera()
+        lam_motion = self._motion_lambda(it)
+        motion = lam_motion > 0 and alpha is not None
         if motion:
             sched["lambda_motion"] = lam_motion
         flow_sample = None
@@ -719,32 +842,57 @@ class Trainer:
         self.iteration += 1
         return metrics
 
-    def _post_main_maintenance(self, it: int):
-        """Densify / opacity-reset schedule after a main-stage step
-        (train_gui.py:410-423)."""
+    def _main_maintenance(self, it: int) -> list:
+        """The maintenance due after main-stage step ``it``
+        (train_gui.py:410-423), in order: "node_densify", "densify",
+        "reset"."""
         cfg = self.cfg
-        if it < cfg.densify_until_iter:
-            if cfg.deform_type == "node" and (
-                    it == cfg.node_force_densify_prune_step
-                    or (cfg.node_enable_densify_prune
-                        and it > cfg.node_densify_from_iter
-                        and it % cfg.node_densification_interval == 0
-                        and it < cfg.node_densify_until_iter
-                        and it > cfg.warm_up)):
+        if it >= cfg.densify_until_iter:
+            return []
+        due = []
+        if cfg.deform_type == "node" and (
+                it == cfg.node_force_densify_prune_step
+                or (cfg.node_enable_densify_prune
+                    and it > cfg.node_densify_from_iter
+                    and it % cfg.node_densification_interval == 0
+                    and it < cfg.node_densify_until_iter
+                    and it > cfg.warm_up)):
+            due.append("node_densify")
+        if it > cfg.densify_from_iter and it % cfg.densification_interval == 0:
+            due.append("densify")
+        if (it % cfg.opacity_reset_interval == 0
+                or (cfg.white_background and it == cfg.densify_from_iter)):
+            due.append("reset")
+        return due
+
+    def _post_main_maintenance(self, it: int):
+        """Densify / opacity-reset schedule after a main-stage step.  On
+        sharded state every rank gathers the whole state, runs the same
+        maintenance with the same draws and keeps its shard again, so the
+        result is the unsharded Trainer's."""
+        cfg = self.cfg
+        due = self._main_maintenance(it)
+        if not due:
+            return
+        if self._mesh is not None:
+            from ..parallel import shard_gauss_state
+            self.state = self.full_state()
+        for what in due:
+            if what == "node_densify":
                 self.state, _ = node_densify_step(
                     self.state, cfg, cfg.densify_grad_threshold)
-            if (it > cfg.densify_from_iter
-                    and it % cfg.densification_interval == 0):
-                prune_big = it > cfg.opacity_reset_interval
+            elif what == "densify":
                 self.state, _ = densify_step(
-                    self.state, cfg, "main", self.extent, 0.01, prune_big,
+                    self.state, cfg, "main", self.extent, 0.01,
+                    it > cfg.opacity_reset_interval,
                     cfg.densify_grad_threshold)
-            if (it % cfg.opacity_reset_interval == 0
-                    or (cfg.white_background
-                        and it == cfg.densify_from_iter)):
+            else:
                 self.state = reset_opacity_step(self.state, "main")
+        if self._mesh is not None:
+            self.state = shard_gauss_state(self._mesh, self.state)
 
     def step(self):
+        self._poll_viewer()
         t0 = time.perf_counter()
         if self.iteration_node < self.cfg.iterations_node_rendering:
             m = self.node_stage_iteration()

@@ -115,8 +115,12 @@ def test_init_points_match_jax():
 
 
 def test_unported_commands_raise(tmp_path):
-    for flags in (["--mesh_shape", "2x2"], ["--exchange_cap", "4096"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every command is ported now: a sharded run on a grid of more ranks
+    than the run has stops before it reads the scene, naming the ranks
+    it needs; no command is left to raise NotImplementedError."""
+    for flags in (["--mesh_shape", "2x2"],
+                  ["--mesh_shape", "1x4", "--exchange_cap", "4096"]):
+        with pytest.raises(SystemExit, match="needs 4 ranks"):
             tcli.main(["train", "-s", str(tmp_path), "-m", str(tmp_path),
                        "--device", "cpu", *flags])
     assert tcli.main([]) == 2

@@ -428,3 +428,43 @@ def test_rasterize_3dgs_on_gpu_matches_cpu(cuda, opaque):
         scale = b.abs().max()
         assert scale > 0
         torch.testing.assert_close(a / scale, b / scale, **GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pallas", "packed"])
+def test_global_tile_map_on_gpu(cuda, kind):
+    """K1 and K2 on interleaved slabs (every D-th tile, D = 2 and 3, slot
+    s at grid tile gtile[s]), as the sharded render launches them: K1's
+    state rows bitwise the whole-grid launch's rows of those tiles and
+    within the tolerances of the plain version with the same map; K2
+    against the plain VJP with the same map."""
+    cam, arrs = _scene(False, cuda, packed=kind == "packed")
+    fs, rank, start, count, gx = _kernel_args(cam, *arrs)
+    whole = blend_fwd(fs, rank, start, count, gx)
+    for D in (2, 3):
+        for d in range(D):
+            gtile = torch.arange(d, start.shape[0], D, dtype=torch.int32,
+                                 device=cuda)
+            sl = gtile.long()
+            args = (fs, rank, start[sl].contiguous(),
+                    count[sl].contiguous(), gx)
+            before = blend_fwd.launches
+            sk = blend_fwd(*args, gtile=gtile)
+            torch.cuda.synchronize()
+            assert blend_fwd.launches == before + 1
+            torch.testing.assert_close(sk, whole[sl], rtol=0, atol=0)
+            sp = blend_tiles_plain(*args, tile_ids=gtile)
+            img = [ROW_T, ROW_DONE, 4, 5, 6]
+            aux = [r for r in range(ROW_N_EVAL) if r not in img]
+            torch.testing.assert_close(sk[:, img], sp[:, img], **IMG)
+            torch.testing.assert_close(sk[:, aux], sp[:, aux], **AUX)
+            f = fs.clone().requires_grad_()
+            state = BlendTiles.apply(f, *args[1:], 64, gtile)
+            g = torch.randn(state.shape,
+                            generator=torch.Generator().manual_seed(d))
+            g = g.to(cuda)
+            d_kernel, = torch.autograd.grad(state, f, g)
+            d_plain = blend_tiles_plain_vjp(*args, g, gtile=gtile)
+            scale = d_plain.abs().amax(dim=0) + 1e-8
+            torch.testing.assert_close(d_kernel / scale, d_plain / scale,
+                                       **GRAD)
