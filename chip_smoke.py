@@ -37,12 +37,16 @@ Phases (each one fails the run with a non-zero exit):
      iterations 8001-8010 on the unperturbed scene have warmed the Adam
      moments (its parameters then put back); checks finite loss, moments
      and parameters, one K1 and one K2 launch per counted step, the
-     densify counts and a falling L1, then times the step and its
-     stages, K1 in training mode (with its checkpoints), K2 and K2's
-     plain version, and prints the tiles' walk lengths, each K2 work
-     item's and each K1 pass's unit or item %globaltimer duration (the
-     longest, the span), the counts, K1's first-pass evaluations, its
-     scratch bytes and the checkpoint bytes;
+     densify counts and a falling L1, holds estimate_rotation on the
+     card (torch.linalg.svd there, as in every step's ARAP term) against
+     numpy's float64 SVD on four ARAP graphs of the trained nodes, each
+     vertex under the tests' bound (regularizers.rotation_rounding_bound),
+     then times the step and its stages, K1 in training mode (with its
+     checkpoints), K2 and K2's plain version, and prints the worst
+     vertex's ratio to that bound and its s2 + s3, the tiles' walk
+     lengths, each K2 work item's and each K1 pass's unit or item
+     %globaltimer duration (the longest, the span), the counts, K1's
+     first-pass evaluations, its scratch bytes and the checkpoint bytes;
   5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
      against their plain versions on the three 48x64 scenes and on the
      full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
@@ -560,6 +564,40 @@ def check_trained(state, metrics, step):
                 if not bool(torch.isfinite(t).all()):
                     raise AssertionError(f"step {step}: non-finite {what} "
                                          f"of {name}.{k}")
+
+
+def check_card_rotations(nodes, node_cfg, n_draws: int = 4) -> dict:
+    """``estimate_rotation`` on the card (``torch.linalg.svd`` there, as in
+    the ARAP term of every training step) on the ARAP graphs of
+    ``n_draws`` seeded draws over ``nodes``, each vertex held against
+    numpy's float64 SVD of its float64 S under the tests' per-vertex bound
+    (``regularizers.rotation_rounding_bound`` at its default c)."""
+    from d2dgs_torch.models import regularizers as R
+    gen = torch.Generator().manual_seed(11)
+    errs, tols, sigs = [], [], []
+    for _ in range(n_draws):
+        draws = R.arap_draws(gen, nodes.nodes.shape[0])
+        with torch.no_grad():
+            seq, nn_idx, weight, _ = R.arap_graph(nodes, node_cfg, draws)
+            rot = R.estimate_rotation(seq[0], seq[1], nn_idx, weight)
+        S = R.procrustes_covariance64(seq[0], seq[1], nn_idx, weight)
+        errs.append(np.abs(rot.cpu().double().numpy()
+                           - R.rotation_oracle(S)).max(axis=(1, 2)))
+        tols.append(R.rotation_rounding_bound(S))
+        sigs.append(np.linalg.svd(S, compute_uv=False))
+    err, tol, sig = (np.concatenate(a) for a in (errs, tols, sigs))
+    ratio = err / tol
+    m = int(np.argmax(ratio))
+    res = dict(vertices=int(err.size), c=R.ROTATION_ROUNDING_C,
+               worst_ratio=float(ratio[m]), worst_err=float(err[m]),
+               worst_bound=float(tol[m]), worst_sigma=sig[m].tolist(),
+               worst_s2_plus_s3=float(sig[m, 1] + sig[m, 2]),
+               max_err=float(err.max()),
+               above_floor=int((tol > 1e-5).sum()),
+               undetermined=int(np.isinf(tol).sum()))
+    if not ratio[m] <= 1.0:
+        raise AssertionError(f"estimate_rotation on the card: {res}")
+    return res
 
 
 def step_stage_ms(fwd_stages: dict, full_loss, groups, extra_inputs,
@@ -3284,6 +3322,14 @@ def main() -> int:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if not l1s[-1] < l1s[0]:
         raise AssertionError(f"L1 did not fall: {l1s}")
+    rot = check_card_rotations(state.nodes, tcfg.node_cfg)
+    log(f"[phase 4] estimate_rotation on the card vs the float64 oracle on "
+        f"{rot['vertices']} vertices of the trained nodes' ARAP graphs: "
+        f"worst ratio to the bound (c {rot['c']}) {rot['worst_ratio']:.4f} "
+        f"(error {rot['worst_err']:.3e}, bound {rot['worst_bound']:.3e}, "
+        f"s2+s3 {rot['worst_s2_plus_s3']:.4e}, s {rot['worst_sigma']}); "
+        f"largest error {rot['max_err']:.3e}; {rot['above_floor']} bounds "
+        f"above 1e-5, {rot['undetermined']} undetermined")
 
     # ---- phase 4 timing ----
     train_stages = train_stage_ms(state, cam_t, gt, tcfg, scheds[-1])

@@ -137,6 +137,69 @@ def estimate_rotation(source: torch.Tensor, target: torch.Tensor,
         torch.arange(source.shape[0], device=source.device))
 
 
+# ----------------------------------------------------------------------
+# How far float32 may move the Procrustes rotations (the parity tests and
+# chip_smoke.py hold estimate_rotation to it; not on the training path)
+# ----------------------------------------------------------------------
+
+# c of rotation_rounding_bound.  The polar factor of S moves by up to
+# 2 |dS| / (s2 + s3) and float32 rounds S at ~eps s1, so c = 2 is the
+# first-order size; 4 leaves room for the SVD's own rounding
+# (tests/test_torch_tools.py::test_estimate_rotation_recovers_rigid gives
+# the measured ratios).
+ROTATION_ROUNDING_C = 4.0
+
+
+def _np(x, dtype=np.float64) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+    return np.asarray(x, dtype=dtype)
+
+
+def procrustes_covariance64(source, target, nn_idx, weight) -> np.ndarray:
+    """``estimate_rotation``'s cross-covariance S [M,3,3] in float64
+    (numpy) from the same float32 inputs (tensors or arrays), zero where
+    no edge moved."""
+    src, tgt, idx = _np(source), _np(target), _np(nn_idx, np.int64)
+    E0 = src[idx] - src[:, None]
+    E1 = tgt[idx] - tgt[:, None]
+    S = np.einsum("mka,mk,mkb->mab", E0, _np(weight), E1)
+    unchanged = np.all(E0 == E1, axis=(1, 2))
+    return np.where(unchanged[:, None, None], 0.0, S)
+
+
+def _svd_flip(S):
+    """numpy's float64 SVD of S [M,3,3] as (U, sig, V) and where
+    ``estimate_rotation``'s det fix flips (det V U^T <= 0)."""
+    U, sig, Vh = np.linalg.svd(_np(S))
+    V = np.swapaxes(Vh, -1, -2)
+    flip = np.linalg.det(V @ np.swapaxes(U, -1, -2)) <= 0
+    return U, sig, V, flip
+
+
+def rotation_oracle(S) -> np.ndarray:
+    """``estimate_rotation`` of each S [M,3,3] in float64: R = V U^T by
+    numpy's SVD, the column of U of the smallest singular value negated
+    where det R <= 0."""
+    U, _, V, flip = _svd_flip(S)
+    U[flip, :, 2] *= -1.0
+    return V @ np.swapaxes(U, -1, -2)
+
+
+def rotation_rounding_bound(S, c: float = ROTATION_ROUNDING_C) -> np.ndarray:
+    """Per vertex, how far float32 may move ``estimate_rotation`` of S
+    [M,3,3] from ``rotation_oracle(S)``: max(1e-5, c eps s1 / d) with
+    eps = 2^-23, the float64 singular values s1 >= s2 >= s3 and d = s2 +
+    s3, or s2 - s3 where the det fix flips (the fixed rotation is the
+    polar factor of a matrix with singular values s1, s2, -s3).  Infinite
+    where d is 0: S does not determine the rotation there."""
+    _, sig, _, flip = _svd_flip(S)
+    d = np.where(flip, sig[:, 1] - sig[:, 2], sig[:, 1] + sig[:, 2])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tol = np.where(d > 0, c * 2.0 ** -23 * sig[:, 0] / d, np.inf)
+    return np.maximum(1e-5, tol)
+
+
 def arap_energy(nodes_seq: torch.Tensor, nn_idx, weight, sample_idx=None):
     """cal_arap_error (deform_utils.py:177-207): sum over t>0 of weighted
     stretch ||E_t - R E_0||^2 with no-grad best-fit rotations.
@@ -168,6 +231,15 @@ def arap_loss(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
     first sample, weighted stretch energy with frozen best-fit rotations.
     ``draws``: the term's random numbers, from ``arap_draws`` with the same
     ``t_samp_num`` and ``sample_num``."""
+    return arap_energy(*arap_graph(params, cfg, draws, t, delta_t,
+                                   t_samp_num, sample_num))
+
+
+def arap_graph(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
+               t=None, delta_t: float = 0.05, t_samp_num: int = 2,
+               sample_num: int = 512):
+    """``arap_loss``'s inputs to ``arap_energy``: (nodes_seq [T,M,3],
+    nn_idx [M,K], weight [M,K], sample_idx [sample_num] or None)."""
     m = params.nodes.shape[0]
     dev = params.nodes.device
     t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
@@ -190,7 +262,7 @@ def arap_loss(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
         g = draws.gumbel.to(dev, torch.float32) + torch.where(
             params.alive, 0.0, float("-inf"))
         sample_idx = torch.topk(g, sample_num).indices
-    return arap_energy(nodes_seq, nn_idx, weight, sample_idx)
+    return nodes_seq, nn_idx, weight, sample_idx
 
 
 def elastic_loss(params: NodeParams, cfg: NodeConfig, draws: TimeDraws,

@@ -99,3 +99,9 @@ def farthest_point_sample(points: torch.Tensor, n_sample: int,
         pick = dist if mask is None else torch.where(mask, dist, -1.0)
         idxs[i] = torch.argmax(pick)
     return idxs.to(torch.int32)
+
+
+def strip_lowerdiag_sym(m: torch.Tensor) -> torch.Tensor:
+    """[..., 3, 3] symmetric -> packed [..., 6] (uplo upper triangle)."""
+    return torch.stack([m[..., 0, 0], m[..., 0, 1], m[..., 0, 2],
+                        m[..., 1, 1], m[..., 1, 2], m[..., 2, 2]], dim=-1)

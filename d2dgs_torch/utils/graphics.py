@@ -38,3 +38,18 @@ def get_world2view(R: np.ndarray, t: np.ndarray,
         C2W[:3, 3] = cam_center
         Rt = np.linalg.inv(C2W)
     return Rt.astype(np.float32)
+
+
+def get_projection_matrix(znear: float, zfar: float,
+                          fovx: float, fovy: float) -> np.ndarray:
+    """3DGS-style perspective projection (graphics_utils.py:56-75), a
+    float32 [4, 4]."""
+    tan_half_fovy = math.tan(fovy / 2.0)
+    tan_half_fovx = math.tan(fovx / 2.0)
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = 1.0 / tan_half_fovx
+    P[1, 1] = 1.0 / tan_half_fovy
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+    return P

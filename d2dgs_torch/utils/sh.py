@@ -80,3 +80,8 @@ def sh_to_rgb(deg, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """Inverse of the DC band mapping (sh_utils.py RGB2SH)."""
     return (rgb - 0.5) / C0
+
+
+def sh_from_rgb_dc(rgb: torch.Tensor) -> torch.Tensor:
+    """The DC band of ``rgb``: ``rgb_to_sh``."""
+    return rgb_to_sh(rgb)

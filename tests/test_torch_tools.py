@@ -114,9 +114,9 @@ def test_convert_resize_pyramid(tmp_path):
         assert im.size == (24 // div, 16 // div)
 
 
-def test_estimate_rotation_recovers_rigid():
-    """tests/test_deform.py's rigid case, and the rotations against the
-    JAX package's on the same graph."""
+def _rigid_case():
+    """tests/test_deform.py's rigid case: 30 points, a rotation about z and
+    a shift, the JAX package's K=8 graph, and a noisy target."""
     src = np.random.RandomState(3).normal(size=(30, 3)).astype(np.float32)
     theta = 0.7
     Rz = np.array([[np.cos(theta), -np.sin(theta), 0],
@@ -125,24 +125,90 @@ def test_estimate_rotation_recovers_rigid():
     tgt = (src @ Rz.T + np.array([1.0, -2.0, 0.5], np.float32)).astype(
         np.float32)
     nn_idx, w, _ = jreg.connectivity_from_points(jnp.asarray(src), K=8)
-    Rhat = treg.estimate_rotation(torch.tensor(src), torch.tensor(tgt),
-                                  torch.tensor(np.asarray(nn_idx)).long(),
-                                  torch.tensor(np.asarray(w)))
-    np.testing.assert_allclose(Rhat.numpy(), np.tile(Rz, (30, 1, 1)),
-                               atol=1e-4)
-    jR = jreg.estimate_rotation(jnp.asarray(src), jnp.asarray(tgt), nn_idx,
-                                w)
-    np.testing.assert_allclose(Rhat.numpy(), np.asarray(jR), atol=1e-5)
-    # a rotation of a noisy target: the same in both packages
     tgt2 = tgt + np.random.RandomState(4).normal(
         size=tgt.shape).astype(np.float32) * 0.05
-    np.testing.assert_allclose(
-        treg.estimate_rotation(torch.tensor(src), torch.tensor(tgt2),
-                               torch.tensor(np.asarray(nn_idx)).long(),
-                               torch.tensor(np.asarray(w))).numpy(),
-        np.asarray(jax.jit(jreg.estimate_rotation)(
-            jnp.asarray(src), jnp.asarray(tgt2), nn_idx, w)), atol=1e-5)
+    return src, Rz, tgt, tgt2, nn_idx, w
+
+
+def _assert_per_vertex(R, R_ref, tol, what):
+    err = np.abs(R - R_ref).max(axis=(1, 2))
+    worst = int(np.argmax(err / tol))
+    assert (err <= tol).all(), (
+        f"{what}: vertex {worst} off by {err[worst]:.3g}, bound "
+        f"{tol[worst]:.3g}")
+
+
+def test_estimate_rotation_recovers_rigid():
+    """tests/test_deform.py's rigid case, and both packages' rotations
+    against a float64 oracle (numpy's SVD of the float64 S, the same det
+    fix) on the same graph, vertex by vertex.
+
+    Each vertex is held to regularizers.rotation_rounding_bound(S, c):
+    max(1e-5, c eps s1 / (s2 + s3)) (s2 - s3 where the det fix flips),
+    how far float32 may move a polar factor.  Vertex 29's neighbourhood
+    is almost a line (s = 1.80, 2.40e-3, 2.85e-4), so its rotation has
+    room 8.0e-5 per unit of c; LAPACK builds put the port 1.16e-5 and
+    JAX 1.11e-6 from the oracle there, 1.28e-5 apart, and a flat 1e-5
+    passed or failed with the host.  Every other vertex's bound is the
+    1e-5 floor, as before.  c = regularizers.ROTATION_ROUNDING_C = 4: the
+    worst measured |R - R64| / (eps s1 / d) over the 60 vertices of the
+    two cases is 2.62 (the port; JAX 1.68, the packages' difference
+    2 x 1.30), so every vertex would hold even without the floor.  The
+    packages are held to each other at the bound of 2c (the triangle
+    inequality), with the same 1e-5 floor."""
+    src, Rz, tgt, tgt2, nn_idx, w = _rigid_case()
+    nn_t = torch.tensor(np.asarray(nn_idx)).long()
+    w_t = torch.tensor(np.asarray(w))
+    c = treg.ROTATION_ROUNDING_C
+    assert c <= 8
+    Rhat = treg.estimate_rotation(torch.tensor(src), torch.tensor(tgt),
+                                  nn_t, w_t)
+    np.testing.assert_allclose(Rhat.numpy(), np.tile(Rz, (30, 1, 1)),
+                               atol=1e-4)
+    # the rigid target through eager JAX, the noisy one through jit
+    for label, target, jfn in (
+            ("rigid", tgt, jreg.estimate_rotation),
+            ("noisy", tgt2, jax.jit(jreg.estimate_rotation))):
+        tR = treg.estimate_rotation(torch.tensor(src), torch.tensor(target),
+                                    nn_t, w_t).numpy()
+        jR = np.asarray(jfn(jnp.asarray(src), jnp.asarray(target), nn_idx,
+                            w))
+        S = treg.procrustes_covariance64(src, target, nn_t, w_t)
+        R64 = treg.rotation_oracle(S)
+        tol = treg.rotation_rounding_bound(S, c)
+        _assert_per_vertex(tR, R64, tol, f"{label}: port vs float64")
+        _assert_per_vertex(jR, R64, tol, f"{label}: JAX vs float64")
+        _assert_per_vertex(tR, jR, treg.rotation_rounding_bound(S, 2 * c),
+                           f"{label}: port vs JAX")
     e = treg.arap_energy(torch.stack([torch.tensor(src), torch.tensor(tgt)]),
-                         torch.tensor(np.asarray(nn_idx)).long(),
-                         torch.tensor(np.asarray(w)))
+                         nn_t, w_t)
     assert float(e) < 1e-8
+
+
+def test_rotation_rounding_bound():
+    """The bound at vertex 29 of the rigid case (s = 1.80, 2.40e-3,
+    2.85e-4): 2 eps 1.80 / 2.69e-3 = 1.6e-4 at c = 2; a well-conditioned
+    vertex is clamped to the 1e-5 floor; the det fix's flip takes
+    s2 - s3; a rank-1 S leaves the rotation undetermined; and the oracle
+    gives a proper rotation either way."""
+    src, Rz, tgt, _, nn_idx, w = _rigid_case()
+    S = treg.procrustes_covariance64(src, tgt, np.asarray(nn_idx),
+                                     np.asarray(w))
+    sig = np.linalg.svd(S, compute_uv=False)
+    np.testing.assert_allclose(sig[29], [1.80, 2.40e-3, 2.85e-4], rtol=2e-2)
+    tol = treg.rotation_rounding_bound(S, c=2.0)
+    expect = 2 * 2.0 ** -23 * sig[29, 0] / (sig[29, 1] + sig[29, 2])
+    np.testing.assert_allclose(tol[29], expect, rtol=1e-12)
+    assert 1.5e-4 < tol[29] < 1.7e-4
+    well = int(np.argmin(sig[:, 0] / (sig[:, 1] + sig[:, 2])))
+    assert tol[well] == 1e-5
+    np.testing.assert_allclose(treg.rotation_oracle(S),
+                               np.tile(Rz, (30, 1, 1)), atol=1e-4)
+    # a reflected S: the det fix flips, and d is s2 - s3
+    refl = np.diag([3.0, 2.0, -1.0])[None]
+    np.testing.assert_allclose(np.linalg.det(treg.rotation_oracle(refl)),
+                               1.0)
+    np.testing.assert_allclose(treg.rotation_rounding_bound(refl, c=1e6),
+                               1e6 * 2.0 ** -23 * 3.0 / (2.0 - 1.0))
+    assert np.isinf(treg.rotation_rounding_bound(
+        np.diag([1.0, 0.0, 0.0])[None])[0])
