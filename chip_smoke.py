@@ -3,11 +3,12 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
-  1. require CUDA, print the card's name and power limit, build the two
-     blend sources from d2dgs_torch/csrc with nvcc and the native mesh
+  1. require CUDA, print the card's name and power limit, build the three
+     CUDA sources from d2dgs_torch/csrc with nvcc and the native mesh
      library from native/mesh_post.cpp with g++ (one compiler per source,
-     started together) and bind the blends' four entry points (K1 and K3 in
-     blend_fwd.cu, K2 and K4 in blend_bwd.cu);
+     started together) and bind the kernels' six entry points (K1 and K3
+     in blend_fwd.cu, K2 and K4 in blend_bwd.cu, K5 and K6 in
+     raster3d.cu);
   2. hold the forward kernel (K1: a first pass of one CTA per 64 pairs of
      a tile, then one CTA per 256-pair segment) in serving and in training
      mode against its plain PyTorch version on the card: a 48x64 scene of
@@ -106,17 +107,23 @@ Phases (each one fails the run with a non-zero exit):
      view, toward the same camera at the next time, the last time
      toward the one before; every fourth at 400x400, so load_flow
      resizes it); checks the flow term of the unperturbed scene against
-     its own target (< 1e-6), rasterize_3dgs on the card against the
-     CPU on a 16x16-tile crop (radii bitwise, image and alpha to 2e-5,
-     depth to 2e-4), that a main-stage step with a flow sample updates
-     the deform MLP otherwise than one without; then `cli train
-     --resume` for 40 main-stage steps (lambda_optical 0.1, the
-     motion-mask term off): a flow sample in every step, one K1 and one
-     K2 launch per step and none of K3/K4, finite losses and a finite
-     checkpoint; prints rasterize_3dgs's forward and forward-plus-
-     backward times and the chunks it walks, a main-stage step's time
-     with and without the flow term and their peak memory, and the CLI
-     steps' times;
+     its own target (< 1e-6), rasterize_3dgs on the card (its blend
+     through K5/K6) against the CPU (the plain walk) on a 16x16-tile crop
+     (radii bitwise, image and alpha to 2e-5, depth to 2e-4); K5 against
+     blend3d_plain on the card over the whole view (T and colours to
+     2e-5, depth to 2e-4) and K6 against the plain autograd VJP with a
+     seeded cotangent (each input max-normalised to GRAD); that a
+     main-stage step with a flow sample updates the deform MLP otherwise
+     than one without, and K6 against the plain VJP on that step's own
+     flow-loss cotangent; then `cli train --resume` for 40 main-stage
+     steps (lambda_optical 0.1, the motion-mask term off): a flow sample
+     in every step, one K1, K2, K5 and K6 launch per step, none of K3/K4
+     and no chunk of the plain walk, finite losses and a finite
+     checkpoint; prints K5's and K6's times, bounds and plain times,
+     rasterize_3dgs's forward and forward-plus-backward times through
+     the kernels and through the plain walk (in turns), a main-stage
+     step's time with and without the flow term and their peak memory,
+     and the CLI steps' times;
   9. (run after phase 6, before phase 8 adds flow files to its scene)
      the other deformation fields, DQB skinning and `cli edit` at full
      width on phase 6's scene: `cli train --deform_type hash` from the
@@ -128,7 +135,8 @@ Phases (each one fails the run with a non-zero exit):
      and those of 0-5 moved (the band mask at step 60), then `cli
      render` and a non-empty `cli mesh --max_times 1`; K1 and K2 (on
      every tile) against their plain versions on the last hash step's
-     own inputs and cotangent; `cli train --deform_type mlp` (20 steps)
+     own inputs and cotangent, K1's flips each judged by the threshold
+     band (no done flip, none outside the band); `cli train --deform_type mlp` (20 steps)
      and `static` (10), one K1 and one K2 per step; the DQB warp of
      phase 3's scene (local-rotation and warp heads drawn from a seed)
      on the card against the CPU and four served 800x800 views, one K1
@@ -194,6 +202,19 @@ OPS_BLEND = 39
 # the w/m/depth and alpha cotangents, the response adjoint and the
 # running sums (143), and its 18 gradients join the cross-pixel sum (18).
 OPS_BWD_BLEND = 143 + 18
+# csrc/raster3d.cu at C = 3, float32 operations per (pair, pixel), counted
+# from the kernels' code.  K5: every evaluated pair (the two offsets, the
+# quadratic form's 9, expf counted as 1, the opacity product, the clip,
+# the two cut tests and the loop's T and alpha tests) 18; every blended
+# pair (w, the 3 colour and the depth multiply-adds, 1 - alpha, T) 11.
+# K6: every pair up to a pixel's last blended one repeats the response
+# without the T test (17); every blended pair adds the pre-blend T and w
+# (3), the weight's adjoint (8), the colour and depth gradients (4), the
+# alpha adjoint and the running sum (5), the clip and the opacity and
+# power adjoints (4), the conic's (9) and the centre's (8) gradients, and
+# its 10 gradients join the warp's sum (10): 51.
+OPS_EVAL_3D, OPS_BLEND_3D = 18, 11
+OPS_BWD_EVAL_3D, OPS_BWD_BLEND_3D = 17, 51
 
 # kernel-vs-plain tolerances per state row: d2dgs_torch.ops.cuda.blend
 # TIGHT and AUX, judged by its compare_states
@@ -257,19 +278,32 @@ def splat_inputs(means3d, scales, quats, opacity, colors, valid_mask, cam,
     return feats[binning.order.long()].contiguous(), binning, gx
 
 
-def check_states(tag, label, sk, sp, pairs):
+def check_states(tag, label, sk, sp, pairs, decisions=None):
     """Kernel state rows ``sk`` against the plain version's ``sp``: log the
-    comparison and raise past the tolerances."""
+    comparison and raise past the tolerances.  Without the plain walk's
+    threshold-test rows ``decisions`` (phases 2, 5a and 7) the flips may
+    number MAX_FLIP_SHARE of the pixels.  With them (compare_states) the
+    band judges each flip: a done flip or one outside the band fails
+    whatever the count, so the flips the band does not explain are held
+    to none, below that cap."""
     from d2dgs_torch.ops.cuda.blend import compare_states
-    res = compare_states(sk, sp)
+    res = compare_states(sk, sp, decisions)
     del res["masks"]
+    band = "" if decisions is None else (
+        f"; threshold band: {res['in_band']} in, {res['outside_band']} "
+        f"outside; furthest {res['band_max_share']:.4g} of its band "
+        f"({res['band_max_ulps']:.4g} ulps from the threshold after "
+        f"{res['band_max_pairs']:.0f} pairs)")
     log(f"[{tag}] {label}: pairs {pairs}, flipped "
         f"pixels {res['flipped']}/{res['pixels']} (by kind "
-        f"{json.dumps(res['flips'])}), outside-tolerance "
+        f"{json.dumps(res['flips'])}){band}, outside-tolerance "
         f"pixels beyond flips {res['bad_outside_flips']}, max |err| per row "
         + json.dumps({str(k): v for k, v in res['row_max_abs_err'].items()}))
-    if res["bad_outside_flips"] or \
-            res["flipped"] > MAX_FLIP_SHARE * res["pixels"]:
+    if decisions is None:
+        unexplained = res["flipped"] > MAX_FLIP_SHARE * res["pixels"]
+    else:
+        unexplained = res["flips"]["done"] or res["outside_band"]
+    if res["bad_outside_flips"] or unexplained:
         summary = {k: v for k, v in res.items() if k != "flip_mask"}
         raise AssertionError(f"blend kernel disagrees with its plain "
                              f"version on {label}: {summary}")
@@ -286,11 +320,12 @@ def train_buffers(counts):
 
 
 def check_kernel(label, feats_sorted, binning, gx, chunk, tag="phase 2",
-                 gtile=None):
+                 gtile=None, band=False):
     """K1 in serving and in training mode against blend_tiles_plain (with
     the global-tile map ``gtile``, when given, on both sides); returns the
     serving state and its check, with the training mode's flip counts
-    under ``training``."""
+    under ``training``.  ``band``: judge each flip by the threshold band
+    (check_states with the plain walk's threshold-test rows)."""
     from d2dgs_torch.ops.cuda.blend import blend_fwd
     from d2dgs_torch.ops.tiled_raster import blend_tiles_plain
     args = (feats_sorted, binning.pair_rank, binning.tile_start,
@@ -299,11 +334,13 @@ def check_kernel(label, feats_sorted, binning, gx, chunk, tag="phase 2",
     records, seg = train_buffers(binning.tile_count)
     st = blend_fwd(*args, records=records, segments=seg, gtile=gtile)
     torch.cuda.synchronize()
-    sp = blend_tiles_plain(*args, chunk=chunk, tile_ids=gtile)
+    sp = blend_tiles_plain(*args, chunk=chunk, tile_ids=gtile,
+                           decisions=band)
+    sp, dec = sp if band else (sp, None)
     torch.cuda.synchronize()
     pairs = int(binning.num_pairs)
-    train = check_states(tag, label + ", training mode", st, sp, pairs)
-    res = check_states(tag, label, sk, sp, pairs)
+    train = check_states(tag, label + ", training mode", st, sp, pairs, dec)
+    res = check_states(tag, label, sk, sp, pairs, dec)
     res["training"] = {k: train[k] for k in ("flipped", "flips")}
     return sk, res
 
@@ -320,7 +357,7 @@ def map_cotangent(state: torch.Tensor, seed: int) -> torch.Tensor:
 
 def check_backward(label, feats_sorted, binning, gx, chunk, flip,
                    tiles=None, g=None, tag="phase 2b", batch=None,
-                   gtile=None):
+                   gtile=None, judged=False):
     """K2 vs its plain version on one scene: a cotangent on the map rows
     (``g``, or one drawn from a seed), zero at the pixels whose
     termination or median flipped between K1 and the plain forward
@@ -329,7 +366,8 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     ``batch`` (and no ``tiles``) the plain version runs over every tile,
     ``batch`` tiles of similar pair counts at a time (a pair's row is one
     tile's, so the batches' gradients add up to the view's).  ``gtile``:
-    the global-tile map of both sides."""
+    the global-tile map of both sides.  ``judged``: K1's check judged
+    each flip by the threshold band (check_grads)."""
     from d2dgs_torch.ops.cuda.blend import (blend_bwd, blend_fwd,
                                             blend_tiles_plain_vjp)
     from d2dgs_torch.ops.tiled_raster import PIX
@@ -357,12 +395,15 @@ def check_backward(label, feats_sorted, binning, gx, chunk, flip,
     torch.cuda.synchronize()
     n_flip = int(flip[tiles].sum()) if tiles is not None else int(flip.sum())
     n_pix = (len(tiles) if tiles is not None else num_tiles) * PIX
-    return check_grads(tag, label, dk, dp, n_flip, n_pix)
+    return check_grads(tag, label, dk, dp, n_flip, n_pix, judged)
 
 
-def check_grads(tag, label, dk, dp, n_flip, n_pix):
+def check_grads(tag, label, dk, dp, n_flip, n_pix, judged=False):
     """Kernel feature gradients ``dk`` against the plain version's ``dp``
-    (rows of NFEAT), each column max-normalised; raise past GRAD."""
+    (rows of NFEAT), each column max-normalised; raise past GRAD, or when
+    the excluded flipped pixels pass MAX_FLIP_SHARE of ``n_pix`` unless
+    K1's check has ``judged`` each of them a threshold case of the band
+    (check_states with the plain walk's threshold-test rows)."""
     dk, dp = dk.reshape(-1, dk.shape[-1]), dp.reshape(-1, dp.shape[-1])
     scale = dp.abs().amax(dim=0) + 1e-30
     err = (dk - dp).abs() / scale
@@ -373,7 +414,7 @@ def check_grads(tag, label, dk, dp, n_flip, n_pix):
         f"max normalised |err| {max_err:.3g} (per column "
         + json.dumps([round(float(e), 9) for e in err.amax(dim=0)])
         + f"), entries outside rtol {rtol} atol {atol}: {bad}")
-    if bad or n_flip > MAX_FLIP_SHARE * n_pix or \
+    if bad or (not judged and n_flip > MAX_FLIP_SHARE * n_pix) or \
             not bool(torch.isfinite(dk).all()):
         raise AssertionError(f"backward kernel disagrees with its plain "
                              f"version on {label}")
@@ -382,11 +423,13 @@ def check_grads(tag, label, dk, dp, n_flip, n_pix):
 
 
 @contextlib.contextmanager
-def kernel_inputs(name: str, keep):
-    """Inside the block, each call of the blend wrapper ``name`` of
-    ops/cuda/blend.py (``blend_fwd`` or ``blend_bwd``) first hands its
-    arguments to ``keep(args, kwargs)``; its launch count is unchanged."""
-    from d2dgs_torch.ops.cuda import blend as blend_lib
+def kernel_inputs(name: str, keep, module: str = "blend"):
+    """Inside the block, each call of the wrapper ``name`` of
+    ops/cuda/<module>.py (``blend_fwd`` or ``blend_bwd`` of blend.py,
+    ``blend3d_bwd`` of raster3d.py) first hands its arguments to
+    ``keep(args, kwargs)``; its launch count is unchanged."""
+    import importlib
+    blend_lib = importlib.import_module(f"d2dgs_torch.ops.cuda.{module}")
     real = getattr(blend_lib, name)
 
     def spy(*args, **kwargs):
@@ -1017,20 +1060,23 @@ def plain_dense_vjp_all_tiles_ms(gdata, counts, gx, g, chunk,
     return total
 
 
-def launch_counts() -> dict:
-    """Each blend kernel's launches since its counter was last reset."""
+def kernel_wrappers() -> tuple:
+    """The wrapper of each kernel, K1-K6, in that order."""
     from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd)
-    return {f.__name__: f.launches
-            for f in (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd)}
+    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_fwd
+    return (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd,
+            blend3d_fwd, blend3d_bwd)
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since its counter was last reset."""
+    return {f.__name__: f.launches for f in kernel_wrappers()}
 
 
 def reset_counts():
-    from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
-    from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
-                                                  blend_dense_fwd)
-    for f in (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd):
+    for f in kernel_wrappers():
         f.launches = 0
 
 
@@ -1267,7 +1313,8 @@ def phase_5b(dev, card) -> dict:
         delta = {k: v - before[k] for k, v in launch_counts().items()}
         want = 1 if m else 0
         if delta != {"blend_fwd": 0, "blend_bwd": 0,
-                     "blend_dense_fwd": want, "blend_dense_bwd": want}:
+                     "blend_dense_fwd": want, "blend_dense_bwd": want,
+                     "blend3d_fwd": 0, "blend3d_bwd": 0}:
             raise AssertionError(f"{stage} iteration {it}: launches {delta}")
         if stage == "node" and it == cfg.iterations_node_sampling:
             downsampled = int(tr.state.ngauss.num_alive)
@@ -1945,6 +1992,21 @@ def flow_raster_inputs(gauss, nodes, deform_cfg, cam1, cam2, step) -> list:
             torch.cat([uv, gauss.motion_mask], -1)]
 
 
+def flow_raster_route(plain: bool, inputs, cam, cfg):
+    """(image, depth, alpha) of ``rasterize_3dgs`` on the five flow
+    inputs, its tile blend through K5/K6 or, with ``plain``, through the
+    plain walk ``blend3d_plain`` (the same preprocess, binning and image
+    assembly around it), on a background of 0."""
+    from d2dgs_torch.ops import raster3d
+    if not plain:
+        img, _, depth, alpha = raster3d.rasterize_3dgs(*inputs, cam, cfg=cfg)
+        return img, depth, alpha
+    _, args = raster3d.blend3d_inputs(*inputs, cam, cfg=cfg)
+    bg = torch.zeros((3,), device=inputs[0].device)
+    return raster3d.blend3d_images(*raster3d.blend3d_plain(*args), bg,
+                                   cam.H, cam.W)
+
+
 @torch.no_grad()
 def write_flow_files(scene, gauss, nodes, deform_cfg, cams, cfg) -> dict:
     """RAFT-format files from the port's own flow renders of the
@@ -2022,6 +2084,134 @@ def flow_crop_check(dev, inputs, cam, cfg) -> dict:
                 cpu_s=cpu_s)
 
 
+def blend3d_bound(args, work, n_walk=None) -> dict:
+    """Least time of K5 (or, given K6's ``n_walk``, of K6) on one view:
+    float32 operations of the pairs each pixel evaluated and blended
+    (K5's ``work`` counts; K6 re-walks the ``n_walk`` pairs up to each
+    pixel's last blended one), against the Gaussian rows, the pair list
+    and the tile arrays read once, plus K5's per-pixel rows written once
+    (T, the colour and depth sums, n_walk) or K6's read once (T, n_walk,
+    the cotangents) and its gradients written once."""
+    from d2dgs_torch.ops.tiled_raster import PIX
+    conic, colors, gid, start = args[0], args[2], args[5], args[6]
+    c = colors.shape[1]
+    gauss_bytes = conic.shape[0] * (7 + c) * 4
+    nbytes = gauss_bytes + gid.numel() * 4 + 2 * start.numel() * 4
+    pixels = start.numel() * PIX
+    n_blend = float(work[:, 1].to(torch.float64).sum())
+    if n_walk is None:
+        n_eval = float(work[:, 0].to(torch.float64).sum())
+        ops = OPS_EVAL_3D * n_eval + OPS_BLEND_3D * n_blend
+        nbytes += pixels * (3 + c) * 4
+    else:
+        n_eval = float(n_walk.to(torch.float64).sum())
+        ops = OPS_BWD_EVAL_3D * n_eval + OPS_BWD_BLEND_3D * n_blend
+        nbytes += pixels * (4 + c) * 4 + gauss_bytes
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    return {"n_eval": n_eval, "n_blend": n_blend, "ops": ops,
+            "bytes": nbytes, "t_ops": t_ops, "t_bytes": t_bytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def check_blend3d(tag, label, out, plain) -> dict:
+    """K5's tile state (T, colour sums, depth sums) against
+    blend3d_plain's on the same inputs: T and the colours to FLOW_IMG_TOL
+    and the depth to FLOW_DEPTH_TOL (the view's alpha, image and depth);
+    also counts the pixels whose termination (T <= T_CUTOFF) differs.
+    Raises past the tolerances."""
+    from d2dgs_torch.config import T_CUTOFF
+    names = ("T", "colour", "depth")
+    err = {n: float((k - p).abs().max()) for n, k, p in zip(names, out,
+                                                              plain)}
+    flips = int(((out[0] <= T_CUTOFF) != (plain[0] <= T_CUTOFF)).sum())
+    finite = all(bool(torch.isfinite(k).all()) for k in out)
+    log(f"[{tag}] {label}: max |err| {json.dumps(err)}; pixels whose "
+        f"termination differs {flips}/{out[0].numel()}")
+    if not finite or err["T"] > FLOW_IMG_TOL or \
+            err["colour"] > FLOW_IMG_TOL or err["depth"] > FLOW_DEPTH_TOL:
+        raise AssertionError(f"K5 disagrees with blend3d_plain on {label}: "
+                             f"{err}, finite {finite}")
+    return {"max_abs_err": err, "flipped": flips,
+            "pixels": out[0].numel()}
+
+
+def check_blend3d_grads(tag, label, dk, dp) -> dict:
+    """K6's gradients (conic, centre, colours, depth, opacity) against the
+    plain VJP's, each input's max-normalised; raises past GRAD."""
+    rtol, atol = GRAD
+    res = {}
+    for name, a, b in zip(("conic", "center", "colors", "depth", "opac"),
+                          dk, dp):
+        scale = float(b.abs().max()) + 1e-30
+        err = (a - b).abs() / scale
+        res[name] = {"max_norm_err": float(err.max()), "scale": scale,
+                     "bad": int((err > atol + rtol * b.abs() / scale).sum()),
+                     "finite": bool(torch.isfinite(a).all())}
+    log(f"[{tag}] {label}: max normalised |err| per input "
+        + json.dumps({k: v["max_norm_err"] for k, v in res.items()})
+        + f", entries outside rtol {rtol} atol {atol}: "
+        + json.dumps({k: v["bad"] for k, v in res.items()}))
+    if any(v["bad"] or not v["finite"] for v in res.values()) or \
+            not any(v["scale"] > 1e-20 for v in res.values()):
+        raise AssertionError(f"K6 disagrees with the plain VJP on {label}: "
+                             f"{res}")
+    return {"max_norm_err": max(v["max_norm_err"] for v in res.values()),
+            "by_input": res,
+            "max_abs_err": max(float((a - b).abs().max())
+                               for a, b in zip(dk, dp))}
+
+
+def blend3d_holds(inputs, cam, cfg) -> dict:
+    """K5 against blend3d_plain on the card over the whole view, and K6
+    against the plain autograd VJP with a cotangent from a seed; then
+    K5, K6 and their plain versions timed with CUDA events (K6 with its
+    outputs' zero fill), and their bounds on this view."""
+    from d2dgs_torch.ops.cuda.raster3d import (blend3d_bwd, blend3d_fwd,
+                                               blend3d_plain_vjp)
+    from d2dgs_torch.ops.raster3d import blend3d_inputs, blend3d_plain
+    from d2dgs_torch.ops.tiled_raster import PIX
+    dev = inputs[0].device
+    label = f"the {cam.H}x{cam.W} flow view"
+    with torch.no_grad():
+        _, args = blend3d_inputs(*inputs, cam, cfg=cfg)
+        nt = args[6].shape[0]
+        work = torch.empty((nt, 2, PIX), dtype=torch.int32, device=dev)
+        n_walk = torch.empty((nt, PIX), dtype=torch.int32, device=dev)
+        out = blend3d_fwd(*args, n_walk=n_walk, work=work)
+        plain = blend3d_plain(*args)
+        torch.cuda.synchronize()
+    fwd = check_blend3d("phase 8", f"K5 on {label}", out, plain)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    g = [torch.randn(o.shape, generator=gen, device=dev) for o in out]
+    kw = dict(chunk=args[9], tile_cap=args[10])
+    bwd = check_blend3d_grads(
+        "phase 8", f"K6 on {label}, a cotangent from a seed",
+        blend3d_bwd(*args[:9], out[0], n_walk, *g, **kw),
+        blend3d_plain_vjp(*args[:9], *g, **kw))
+    with torch.no_grad():
+        k5_ms = cuda_ms(lambda: blend3d_fwd(*args, n_walk=n_walk), reps=20)
+        k6_ms = cuda_ms(lambda: blend3d_bwd(*args[:9], out[0], n_walk, *g,
+                                            **kw), reps=20)
+        plain_ms = cuda_ms(lambda: blend3d_plain(*args), reps=3)
+    plain_vjp_ms = cuda_ms(lambda: blend3d_plain_vjp(*args[:9], *g, **kw),
+                           reps=3)
+    b5, b6 = blend3d_bound(args, work), blend3d_bound(args, work, n_walk)
+    res = {"pairs": int(args[5].numel()), "fwd_check": fwd,
+           "bwd_check": bwd, "k5_ms": k5_ms, "k6_ms": k6_ms,
+           "k5_plain_ms": plain_ms, "k6_plain_ms": plain_vjp_ms,
+           "k5_bound": b5, "k6_bound": b6,
+           "busiest_tile_pairs": int(args[7].max())}
+    log(f"[phase 8] K5/K6 on {label} ({res['pairs']} pairs, busiest tile "
+        f"{res['busiest_tile_pairs']}): K5 {k5_ms:.4f} ms (plain "
+        f"{plain_ms:.2f}), bound {b5['bound_ms']:.4f} ms by "
+        f"{b5['bound_by']} ({b5['n_eval']:.0f} evaluations, "
+        f"{b5['n_blend']:.0f} blends); K6 {k6_ms:.4f} ms (plain VJP "
+        f"{plain_vjp_ms:.2f}), bound {b6['bound_ms']:.4f} ms by "
+        f"{b6['bound_by']} ({b6['n_eval']:.0f} re-walked pairs)")
+    return res
+
+
 def phase_8(dev, card, res6) -> dict:
     """The optical-flow training path at full width, through the CLI."""
     from d2dgs_torch import cli
@@ -2066,34 +2256,49 @@ def phase_8(dev, card, res6) -> dict:
         raise AssertionError(f"phase 8: flow term against its own target "
                              f"{self_term} on {solid} solid pixels")
 
-    # ---- rasterize_3dgs: the card against the CPU, and timed
+    # ---- rasterize_3dgs: the card against the CPU on a crop, K5 and K6
+    # against their plain versions over the whole view, both routes timed
     inputs = flow_raster_inputs(gauss, nodes, deform_cfg, cam1, cam2,
                                 CLI_START)
     crop = flow_crop_check(dev, inputs, cam1, cfg.raster)
-    raster3d.WALK_COUNTS.update(renders=0, chunks=0)
-    fwd_ms = cuda_ms(lambda: raster3d.rasterize_3dgs(*inputs, cam1,
-                                                      cfg=cfg.raster),
-                     reps=5)
-    chunks_one = raster3d.WALK_COUNTS["chunks"] // raster3d.WALK_COUNTS[
-        "renders"]
+    holds = blend3d_holds(inputs, cam1, cfg.raster)
     xs = [a.clone().requires_grad_(True) for a in inputs]
     w = torch.rand((cam1.H, cam1.W, 5), device=dev,
                    generator=torch.Generator(device=dev).manual_seed(3))
 
-    def fwd_bwd():
-        img, _, depth, alpha = raster3d.rasterize_3dgs(*xs, cam1,
-                                                        cfg=cfg.raster)
-        torch.autograd.grad(torch.sum(torch.cat([img, depth, alpha], -1)
-                                      * w), xs)
-    fwd_bwd_ms = cuda_ms(fwd_bwd, reps=5)
+    def fwd(plain):
+        with torch.no_grad():
+            flow_raster_route(plain, inputs, cam1, cfg.raster)
+
+    def fwd_bwd(plain):
+        out = flow_raster_route(plain, xs, cam1, cfg.raster)
+        torch.autograd.grad(torch.sum(torch.cat(out, -1) * w), xs)
+    raster3d.WALK_COUNTS.update(renders=0, chunks=0)
+    fwd(False)
+    fwd_bwd(False)
+    if raster3d.WALK_COUNTS != {"renders": 0, "chunks": 0}:
+        raise AssertionError(f"phase 8: the kernel route walked the plain "
+                             f"blend: {raster3d.WALK_COUNTS}")
+    fwd(True)
+    chunks_one = raster3d.WALK_COUNTS["chunks"]
+    # in turns (plain, kernel, kernel, plain), 5 calls each
+    route_ms = {"kernel": [], "plain": []}
+    for route in ("plain", "kernel", "kernel", "plain"):
+        route_ms[route].append(
+            (cuda_ms(lambda: fwd(route == "plain"), reps=5),
+             cuda_ms(lambda: fwd_bwd(route == "plain"), reps=5)))
+    (fwd_ms, fwd_bwd_ms), (plain_fwd_ms, plain_fwd_bwd_ms) = (
+        np.mean(route_ms[r], axis=0).tolist() for r in ("kernel", "plain"))
     del xs
-    log(f"[phase 8] rasterize_3dgs at {cam1.H}x{cam1.W} ({card}): forward "
-        f"{fwd_ms:.2f} ms, forward + backward {fwd_bwd_ms:.2f} ms, "
-        f"{chunks_one} chunks of {cfg.raster.chunk} pairs walked; the card "
-        f"against the CPU on {CROP_TILES}x{CROP_TILES} tiles "
-        f"({crop['splats']} splats): max |d image| {crop['image']:.3g}, "
-        f"|d alpha| {crop['alpha']:.3g}, |d depth| {crop['depth']:.3g}, "
-        f"radii equal")
+    log(f"[phase 8] rasterize_3dgs at {cam1.H}x{cam1.W} ({card}), means of "
+        f"two turns: through K5/K6 forward {fwd_ms:.2f} ms, forward + "
+        f"backward {fwd_bwd_ms:.2f} ms; through the plain walk forward "
+        f"{plain_fwd_ms:.2f} ms, forward + backward {plain_fwd_bwd_ms:.2f} "
+        f"ms ({chunks_one} chunks of {cfg.raster.chunk} pairs); turns "
+        + json.dumps(route_ms) + f"; the card against the CPU on "
+        f"{CROP_TILES}x{CROP_TILES} tiles ({crop['splats']} splats): max "
+        f"|d image| {crop['image']:.3g}, |d alpha| {crop['alpha']:.3g}, "
+        f"|d depth| {crop['depth']:.3g}, radii equal")
 
     # ---- one main-stage step with and without the flow term
     def start_state():
@@ -2105,7 +2310,7 @@ def phase_8(dev, card, res6) -> dict:
     sample = (cam2, torch.as_tensor(flow, device=dev),
               torch.as_tensor(mask, device=dev), pw)
     cam_gt = (cam1, gt)
-    step_ms, mlps, peak = {}, {}, {}
+    step_ms, mlps, peak, k6_call = {}, {}, {}, {}
     for flow_loss in (False, True):
         state = start_state()
         torch.cuda.synchronize()
@@ -2113,9 +2318,15 @@ def phase_8(dev, card, res6) -> dict:
         base = torch.cuda.memory_allocated()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        # K6's inputs and cotangent in the step with the flow term
+        spy = kernel_inputs("blend3d_bwd", lambda a, k: k6_call.update(
+            args=a, kw=k), module="raster3d") if flow_loss \
+            else contextlib.nullcontext()
         start.record()
-        state, _ = main_stage_step(state, *cam_gt, cfg, sched,
-                                   flow_sample=sample, flow_loss=flow_loss)
+        with spy:
+            state, _ = main_stage_step(state, *cam_gt, cfg, sched,
+                                       flow_sample=sample,
+                                       flow_loss=flow_loss)
         end.record()
         torch.cuda.synchronize()
         peak[flow_loss] = (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -2131,6 +2342,16 @@ def phase_8(dev, card, res6) -> dict:
     if not diff > 0.0:
         raise AssertionError("phase 8: the flow term did not change the "
                              "deform MLP's update")
+    # K6 against the plain VJP on that step's own flow-loss cotangent
+    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_plain_vjp
+    a, kw = k6_call["args"], k6_call["kw"]
+    if not any(bool(t.any()) for t in a[11:14]):
+        raise AssertionError("phase 8: the flow term's cotangent is zero")
+    own = check_blend3d_grads(
+        "phase 8", "K6 on the flow step's view, its own flow-loss "
+        "cotangent", blend3d_bwd(*a, **kw),
+        blend3d_plain_vjp(*a[:9], *a[11:14], **kw))
+    del a, k6_call
     del gauss, nodes, inputs, mlps
     torch.cuda.empty_cache()
     log(f"[phase 8] main-stage step ({card}): {step_ms[False]:.2f} ms "
@@ -2158,14 +2379,15 @@ def phase_8(dev, card, res6) -> dict:
         raise AssertionError(f"phase 8: {len(rep['step_ms'])} steps, "
                              f"{rep['flow_steps']} with a flow sample; "
                              f"expected {FLOW_STEPS} of each")
-    if (counts["blend_fwd"], counts["blend_bwd"]) != (FLOW_STEPS,
-                                                      FLOW_STEPS) or \
+    if (counts["blend_fwd"], counts["blend_bwd"], counts["blend3d_fwd"],
+            counts["blend3d_bwd"]) != (FLOW_STEPS,) * 4 or \
             counts["blend_dense_fwd"] or counts["blend_dense_bwd"]:
-        raise AssertionError(f"phase 8 launches {counts}: expected one K1 "
-                             f"and one K2 per step, no K3/K4")
-    if walk["renders"] != FLOW_STEPS:
-        raise AssertionError(f"phase 8: {walk['renders']} flow renders in "
-                             f"{FLOW_STEPS} steps")
+        raise AssertionError(f"phase 8 launches {counts}: expected one K1, "
+                             f"one K2, one K5 and one K6 per step, no "
+                             f"K3/K4")
+    if walk != {"renders": 0, "chunks": 0}:
+        raise AssertionError(f"phase 8: the plain blend walked {walk} in "
+                             f"the flow steps on the card")
     if not all(np.isfinite(rep["loss"])):
         raise AssertionError(f"phase 8: non-finite loss {rep['loss']}")
     with np.load(model / "ckpt.npz") as z:
@@ -2179,8 +2401,10 @@ def phase_8(dev, card, res6) -> dict:
            "l1": rep["loss"], "self_term": self_term, "solid_px": solid,
            "crop": crop, "raster3d_fwd_ms": fwd_ms,
            "raster3d_fwd_bwd_ms": fwd_bwd_ms,
-           "chunks_per_render": walk["chunks"] / walk["renders"],
-           "chunks_one_view": chunks_one,
+           "raster3d_plain_fwd_ms": plain_fwd_ms,
+           "raster3d_plain_fwd_bwd_ms": plain_fwd_bwd_ms,
+           "raster3d_turns_ms": route_ms, "plain_chunks_one_view": chunks_one,
+           "blend3d": holds, "k6_own_check": own,
            "step_ms_no_flow": step_ms[False], "step_ms_flow": step_ms[True],
            "peak_gb_no_flow": peak[False], "peak_gb_flow": peak[True],
            "mlp_update_diff": diff, "flow_files": len(paths),
@@ -2190,7 +2414,7 @@ def phase_8(dev, card, res6) -> dict:
         f"{res['flow_step_ms']:.2f} ms per step (mean of steps 2-"
         f"{FLOW_STEPS}, median {res['flow_step_ms_median']:.2f}; phase 6 "
         f"without flow files {res6['train_step_ms']:.2f}) ({card}); "
-        f"{res['chunks_per_render']:.2f} chunks walked per flow render; L1 "
+        f"plain chunks walked {walk['chunks']}; L1 "
         f"{rep['loss'][0]:.5f} -> {rep['loss'][-1]:.5f}; launches {counts}; "
         f"flow term of the unperturbed scene against its own target "
         f"{self_term:.3g} ({solid} solid pixels); phase 8 "
@@ -2573,12 +2797,15 @@ def phase_9(dev, card, res6) -> dict:
     label = f"hash step {HASH_STEPS} (fullest tile {top} pairs)"
     # K2 on every tile: the fog's threshold flips gather in its fullest
     # tiles, so the flip share is judged over the view, as K1's is
+    # (the fog's many pixels near T = 0.5 or 1e-4 flip by rounding: each
+    # flip must be a threshold case of the band, none a done flip)
     with torch.no_grad():
         _, res_k1 = check_kernel(label, fs, binning, gx, chunk,
-                                 tag="phase 9")
+                                 tag="phase 9", band=True)
         res_k2 = check_backward(
             label + ", its own cotangent on every tile", fs, binning, gx,
-            chunk, res_k1.pop("flip_mask"), g=g, tag="phase 9", batch=64)
+            chunk, res_k1.pop("flip_mask"), g=g, tag="phase 9", batch=64,
+            judged=True)
     res_k1["busiest_tile_pairs"] = res_k2["busiest_tile_pairs"] = top
     del last_step, fs, pair_rank, tile_start, tile_count, g, binning
     torch.cuda.empty_cache()
@@ -2818,8 +3045,7 @@ def sharded_steps(dev, card, cfg, tmp: Path) -> dict:
                 margin=2.0)
         scheds = phase4_schedules(tcfg, SHARD_STEPS)
         gen = torch.Generator().manual_seed(12)
-        rows, counts = [], {"blend_fwd": 0, "blend_bwd": 0,
-                            "blend_dense_fwd": 0, "blend_dense_bwd": 0}
+        rows, counts = [], {f.__name__: 0 for f in kernel_wrappers()}
         for i, sched in enumerate(scheds):
             draws = R.arap_draws(gen, nodes.nodes.shape[0])
             sh = shard_gauss_state(mesh, clone_state(state))
@@ -3081,6 +3307,7 @@ def main() -> int:
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
     from d2dgs_torch.ops.cuda import blend as blend_lib
+    from d2dgs_torch.ops.cuda import raster3d as raster3d_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
                                             segment_layout)
@@ -3099,9 +3326,10 @@ def main() -> int:
     log(f"[phase 1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:      # one compiler per source
+    with ThreadPoolExecutor(4) as pool:      # one compiler per source
         native_lib = pool.submit(native.build)
-        built = list(pool.map(build.build, (SOURCE, SOURCE_BWD)))
+        built = list(pool.map(build.build, (SOURCE, SOURCE_BWD,
+                                            raster3d_lib.SOURCE)))
         native_lib = native_lib.result()
     for lib, report in built:
         log(f"[phase 1] built {lib.relative_to(ROOT)}")
@@ -3110,13 +3338,15 @@ def main() -> int:
                 log(f"[phase 1] ptxas: {line.strip()}")
     if not native.available():
         raise AssertionError("the native mesh library did not load")
-    log(f"[phase 1] both sources and the native mesh library "
+    log(f"[phase 1] the three CUDA sources and the native mesh library "
         f"({native_lib.relative_to(ROOT)}, g++ from native/mesh_post.cpp) "
         f"built in {time.time() - t0:.1f} s")
     blend_lib._lib()        # binds K1's and K3's entry points, or raises
     blend_lib._lib_bwd()    # K2's and K4's
+    raster3d_lib._lib()     # K5's and K6's
     log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
-        "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4)")
+        "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4), "
+        "raster3d_fwd_launch and raster3d_bwd_launch (K5, K6)")
     cfg = RasterConfig()
 
     # ---- phase 2 and 2b: kernels vs plain on small scenes ----
@@ -3438,7 +3668,8 @@ def main() -> int:
               "trainer": ("blend_dense_fwd", "blend_dense_bwd"),
               "cli": ("blend_fwd", "blend_bwd"),
               "geometry": ("blend_fwd", "blend_bwd"),
-              "flow": ("blend_fwd", "blend_bwd"),
+              "flow": ("blend_fwd", "blend_bwd", "blend3d_fwd",
+                       "blend3d_bwd"),
               "fields": ("blend_fwd", "blend_bwd"), "dqb": ("blend_fwd",),
               "edit": ("blend_fwd",)}
     for path, names in needed.items():
@@ -3448,6 +3679,7 @@ def main() -> int:
                                      f"path")
     by_path = lambda k: {path: c[k] for path, c in paths.items()}
     b3, b4 = res5a["k3_bound"], res5a["k4_bound"]
+    b5 = res8["blend3d"]
     log(f"[done] {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "blend_fwd", "route": "cuda",
@@ -3469,7 +3701,9 @@ def main() -> int:
         "render_ms": render_ms, "stages_ms": stages,
         "cli_view_ms": res6["view_ms"],
         "fields_check": {f: res9["fwd_check"][f] for f in (
-            "busiest_tile_pairs", "max_abs_err", "flipped")},
+            "busiest_tile_pairs", "max_abs_err", "flipped", "flips",
+            "in_band", "outside_band", "band_max_share", "band_max_ulps",
+            "band_max_pairs")},
         "deform_types": {k: res9[k] for k in (
             "hash_step_ms", "hash_live_step_ms", "mlp_step_ms",
             "mlp_live_step_ms", "static_step_ms", "hash_l1",
@@ -3517,8 +3751,9 @@ def main() -> int:
         "flow_path": {k: res8[k] for k in (
             "flow_step_ms", "flow_step_ms_median", "step_ms_no_flow",
             "step_ms_flow", "peak_gb_no_flow", "peak_gb_flow",
-            "raster3d_fwd_ms", "raster3d_fwd_bwd_ms", "chunks_per_render",
-            "chunks_one_view", "self_term", "crop")}}, {
+            "raster3d_fwd_ms", "raster3d_fwd_bwd_ms",
+            "raster3d_plain_fwd_ms", "raster3d_plain_fwd_bwd_ms",
+            "plain_chunks_one_view", "self_term", "crop")}}, {
         "name": "blend_dense_fwd", "route": "cuda",
         "source": "d2dgs_torch/csrc/blend_fwd.cu",
         "replaces": "d2dgs_tpu/ops/pallas/blend_tpu.py:411",
@@ -3554,7 +3789,42 @@ def main() -> int:
         "longest_item_us": res5a["k4_items"]["slowest_us"],
         "items_span_us": res5a["k4_items"]["span_us"],
         "checkpoint_bytes": res5a["ckpt_bytes"],
-        "zero_fill_ms": res5a["k4_zero_fill_ms"]}]}))
+        "zero_fill_ms": res5a["k4_zero_fill_ms"]}, {
+        "name": "blend3d_fwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/raster3d.cu",
+        "replaces": "d2dgs_tpu/ops/raster3d.py:140",
+        "launches": sum(c["blend3d_fwd"] for c in paths.values()),
+        "launches_by_path": by_path("blend3d_fwd"),
+        "max_abs_err": max(b5["fwd_check"]["max_abs_err"].values()),
+        "max_abs_err_by_output": b5["fwd_check"]["max_abs_err"],
+        "flipped_pixels": b5["fwd_check"]["flipped"],
+        "ms": b5["k5_ms"], "plain_ms": b5["k5_plain_ms"],
+        "bound_ms": b5["k5_bound"]["bound_ms"],
+        "bound_by": b5["k5_bound"]["bound_by"], "library_ms": None,
+        "pairs": b5["pairs"], "busiest_tile_pairs": b5["busiest_tile_pairs"],
+        "evaluations": b5["k5_bound"]["n_eval"],
+        "blends": b5["k5_bound"]["n_blend"],
+        "rasterize_3dgs_ms": {
+            "kernel": {"fwd": res8["raster3d_fwd_ms"],
+                       "fwd_bwd": res8["raster3d_fwd_bwd_ms"]},
+            "plain": {"fwd": res8["raster3d_plain_fwd_ms"],
+                      "fwd_bwd": res8["raster3d_plain_fwd_bwd_ms"]}},
+        "flow_step_ms": res8["flow_step_ms"],
+        "step_ms_without_flow_files": res6["train_step_ms"]}, {
+        "name": "blend3d_bwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/raster3d.cu",
+        "replaces": "d2dgs_tpu/ops/raster3d.py:140",
+        "launches": sum(c["blend3d_bwd"] for c in paths.values()),
+        "launches_by_path": by_path("blend3d_bwd"),
+        "max_abs_err": max(b5["bwd_check"]["max_abs_err"],
+                           res8["k6_own_check"]["max_abs_err"]),
+        "max_norm_err": {"seeded": b5["bwd_check"]["max_norm_err"],
+                         "flow_loss": res8["k6_own_check"]["max_norm_err"]},
+        "flipped_pixels": b5["fwd_check"]["flipped"],
+        "ms": b5["k6_ms"], "plain_ms": b5["k6_plain_ms"],
+        "bound_ms": b5["k6_bound"]["bound_ms"],
+        "bound_by": b5["k6_bound"]["bound_by"], "library_ms": None,
+        "rewalked": b5["k6_bound"]["n_eval"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

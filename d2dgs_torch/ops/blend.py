@@ -81,23 +81,36 @@ class BlendState(NamedTuple):
     # blended pair and of the median pair (-1 for none), int64
     last: torch.Tensor | None = None
     med: torch.Tensor | None = None
+    # with ``decisions``: the transmittances the walk's threshold tests
+    # read (NaN where there is none): before and after the median pair
+    # (T > 0.5 chose it), the pairs blended up to and with it, and T
+    # after the pair that tripped the termination (T < T_CUTOFF)
+    t_med: torch.Tensor | None = None
+    t_med_after: torch.Tensor | None = None
+    n_med: torch.Tensor | None = None
+    t_trip: torch.Tensor | None = None
 
 
 def init_state(shape, device=None, dtype=torch.float32,
-               positions: bool = False) -> BlendState:
+               positions: bool = False, decisions: bool = False
+               ) -> BlendState:
     """shape: the pixel shape (..., P).  ``positions``: also track the
     last blended and the median pair's positions (``BlendState.last`` and
-    ``med``)."""
+    ``med``); ``decisions``: the transmittances of the threshold tests
+    (``t_med``, ``t_med_after``, ``n_med``, ``t_trip``)."""
     z = torch.zeros(shape, dtype=dtype, device=device)
     z3 = torch.zeros(tuple(shape) + (3,), dtype=dtype, device=device)
     none = torch.full(shape, -1, dtype=torch.int64, device=device) \
         if positions else None
+    nan = torch.full(shape, float("nan"), dtype=dtype, device=device) \
+        if decisions else None
     return BlendState(
         T=torch.ones(shape, dtype=dtype, device=device),
         done=torch.zeros(shape, dtype=torch.bool, device=device),
         color=z3, depth=z, normal=z3.clone(), dist1=z, dist2=z,
         distortion=z, med_depth=z, med_weight=z, n_eval=z, n_blend=z,
-        last=none, med=none)
+        last=none, med=none, t_med=nan, t_med_after=nan,
+        n_med=None if nan is None else z, t_trip=nan)
 
 
 def _ex_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +179,18 @@ def blend_chunk(state: BlendState, alpha: torch.Tensor, depth: torch.Tensor,
         last_b = torch.amax(torch.where(blended, idx, -1), dim=-2)
         pos_last = torch.where(last_b >= 0, offset + last_b, pos_last)
         pos_med = torch.where(has_med, offset + last[..., 0, :], pos_med)
+    dec = (state.t_med, state.t_med_after, state.n_med, state.t_trip)
+    if state.t_trip is not None:
+        blended_n = torch.cumsum((include & (alpha > 0.0)).to(alpha.dtype),
+                                 dim=-2)
+        at = lambda x, i: torch.gather(x, -2, i)[..., 0, :]
+        trip = any_trig & ~state.done
+        dec = (torch.where(has_med, at(T_before, last), state.t_med),
+               torch.where(has_med, at(T_after, last), state.t_med_after),
+               torch.where(has_med, state.n_blend + at(blended_n, last),
+                           state.n_med),
+               torch.where(trip, at(T_after, torch.clamp_max(
+                   first, g - 1)[..., None, :]), state.t_trip))
     return BlendState(
         T=state.T * torch.prod(torch.where(include, one_minus, 1.0), dim=-2),
         done=state.done | any_trig,
@@ -179,7 +204,8 @@ def blend_chunk(state: BlendState, alpha: torch.Tensor, depth: torch.Tensor,
                                           evaluated.to(alpha.dtype)),
         n_blend=state.n_blend + torch.sum(include & (alpha > 0.0), dim=-2,
                                           dtype=alpha.dtype),
-        last=pos_last, med=pos_med,
+        last=pos_last, med=pos_med, t_med=dec[0], t_med_after=dec[1],
+        n_med=dec[2], t_trip=dec[3],
     )
 
 

@@ -29,7 +29,8 @@ import torch
 from ...config import (ALPHA_CLIP, ALPHA_CUTOFF, FAR_PLANE,
                        FILTER_INV_SQUARE, NEAR_PLANE, T_CUTOFF)
 from .. import blend as B
-from ..tiled_raster import (CKPT_ROWS, NCKPT, NFEAT, NSTATE, PIX, ROW_COLOR,
+from ..tiled_raster import (CKPT_ROWS, DEC_MED, DEC_MED_AFTER, DEC_N_MED,
+                            DEC_TRIP, NCKPT, NFEAT, NSTATE, PIX, ROW_COLOR,
                             ROW_D1, ROW_D2, ROW_DEPTH, ROW_DISTORTION,
                             ROW_DONE, ROW_MED_D, ROW_MED_W, ROW_N_BLEND,
                             ROW_N_EVAL, ROW_NORMAL, ROW_T, _tile_pixels,
@@ -416,7 +417,28 @@ TIGHT = (1e-5, 1e-5)
 AUX = (1e-4, 1e-5)
 
 
-def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
+# The threshold band of a flip (compare_states with ``decisions``).  K1/K3
+# and the plain walk multiply the same float32 factors (1 - alpha): both
+# compute alpha with the same operations in the same order (-fmad=false,
+# csrc/blend_fwd.cu), and differ only in how they associate the product
+# (K1 unit products and their prefix products, the plain walk a chunk's
+# cumulative product scaled by the carried T).  A rounded product of n
+# factors, in any association, lies within (1 + u)^n - 1 ~ n u of the
+# exact one (u = 2^-24, each multiply rounds to half an ulp), so the two
+# walks' T after n blended pairs differ by at most 2 n u T.  A pixel whose
+# decision differs has its threshold between the two T, so the plain T
+# lies within 2 n u thr of the threshold thr: with 2^e <= thr < 2^(e+1)
+# and ulp(thr) = 2^(e-23), that is n (thr / 2^e) ulp(thr) < 2 n ulp(thr).
+# A flip is a threshold case when the plain T at its decision lies within
+# BAND_ULPS ulps of the threshold per pair blended up to it: 2 (1.64 at
+# T_CUTOFF = 1e-4, whose ulp is 2^-37; 1 at 0.5, whose ulp is 2^-24).
+BAND_ULPS = 2.0
+ULP_CUTOFF = 2.0 ** -37       # the float32 spacing at T_CUTOFF (1e-4)
+ULP_HALF = 2.0 ** -24         # the float32 spacing at 0.5 (upward)
+
+
+def compare_states(sk: torch.Tensor, sp: torch.Tensor,
+                   decisions: torch.Tensor | None = None) -> dict:
     """State rows ``sk`` of a blend against a reference's ``sp``.  A pixel
     'flips' when its termination or its median-depth choice differs, in
     one of three kinds, each pixel in the first that fits:
@@ -431,7 +453,24 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     that do not are ``other``.  Returns the per-row max errors outside the
     flips, the flipped and the outside-tolerance pixel counts, the count
     of each kind (``flips``), the flip mask [T, PIX] and each kind's mask
-    (``masks``, ``other`` included)."""
+    (``masks``, ``other`` included).
+
+    ``decisions`` [T, NDEC, PIX], the reference walk's threshold-test rows
+    (``blend_tiles_plain(decisions=True)``), adds the band test: a median
+    or trip_moved flip is a threshold case (``in_band``) when the
+    reference's T where the two walks part lies within BAND_ULPS ulps of
+    its threshold per pair blended up to there.  For a trip_moved flip
+    that T is the reference's T after the pair that one side tripped on
+    (its final T where it blended that pair, its ``t_trip`` where it
+    tripped on it), against T_CUTOFF, after its blended pairs and one; for
+    a median flip the nearer to 0.5 of its T before and after its median
+    pair (the later of the two sides' median pairs is the one whose
+    pre-blend T decided), after the pairs up to the median.  Adds the
+    counts ``in_band`` and ``outside_band`` (median and trip_moved flips
+    outside it) and, at the flip that reaches furthest into its band, the
+    share of the band reached (``band_max_share``), its distance to the
+    threshold in ulps (``band_max_ulps``) and its pairs
+    (``band_max_pairs``)."""
     tol = {ROW_T: TIGHT, ROW_D1: AUX, ROW_D2: AUX, ROW_DEPTH: AUX,
            ROW_DISTORTION: AUX, ROW_MED_D: AUX, ROW_MED_W: AUX}
     for sl, t in ((ROW_COLOR, TIGHT), (ROW_NORMAL, AUX)):
@@ -460,12 +499,42 @@ def compare_states(sk: torch.Tensor, sp: torch.Tensor) -> dict:
     bad &= keep
     masks = {"done": done, "median": median, "trip_moved": trip_moved,
              "other": bad}
-    return {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
-            "pixels": flip.numel(), "bad_outside_flips": int(bad.sum()),
-            "flips": {k: int(masks[k].sum())
-                      for k in ("done", "median", "trip_moved")},
-            "max_abs_err": max(row_err.values()), "flip_mask": flip,
-            "masks": masks}
+    res = {"row_max_abs_err": row_err, "flipped": int(flip.sum()),
+           "pixels": flip.numel(), "bad_outside_flips": int(bad.sum()),
+           "flips": {k: int(masks[k].sum())
+                     for k in ("done", "median", "trip_moved")},
+           "max_abs_err": max(row_err.values()), "flip_mask": flip,
+           "masks": masks}
+    if decisions is not None:
+        res.update(threshold_band(sp, decisions, median, trip_moved, extra))
+    return res
+
+
+def threshold_band(sp: torch.Tensor, decisions: torch.Tensor,
+                   median: torch.Tensor, trip_moved: torch.Tensor,
+                   extra: torch.Tensor) -> dict:
+    """The band test of ``compare_states`` on its median and trip_moved
+    masks, ``extra`` the kernel's blended pairs minus the reference's."""
+    d64 = decisions.to(torch.float64)
+    t_trip = torch.where(extra > 0, d64[:, DEC_TRIP],
+                         sp[:, ROW_T].to(torch.float64))
+    ulps_trip = (t_trip - T_CUTOFF).abs() / ULP_CUTOFF
+    ulps_med = torch.minimum((d64[:, DEC_MED] - 0.5).abs(),
+                             (d64[:, DEC_MED_AFTER] - 0.5).abs()) / ULP_HALF
+    ulps = torch.where(trip_moved, ulps_trip, ulps_med)
+    pairs = torch.where(trip_moved, sp[:, ROW_N_BLEND].to(torch.float64)
+                        + 1.0, d64[:, DEC_N_MED])
+    share = ulps / (BAND_ULPS * torch.clamp_min(pairs, 1.0))
+    judged = median | trip_moved
+    in_band = judged & (share <= 1.0)        # NaN (no decision) is out
+    worst = torch.where(judged, torch.nan_to_num(share, nan=float("inf")),
+                        -1.0).flatten()
+    at = int(torch.argmax(worst)) if bool(judged.any()) else None
+    pick = lambda x: 0.0 if at is None else float(x.flatten()[at])
+    return {"in_band": int(in_band.sum()),
+            "outside_band": int((judged & ~in_band).sum()),
+            "band_max_share": pick(worst), "band_max_ulps": pick(ulps),
+            "band_max_pairs": pick(pairs)}
 
 
 def blend_fwd_segments_plain(rows: torch.Tensor, counts: torch.Tensor,

@@ -2,13 +2,16 @@
 (counterpart of d2dgs_tpu/ops/raster3d.py, the reference's bundled
 diff-gaussian-rasterization: computeCov3D, computeCov2D, preprocessCUDA,
 renderCUDA's conic blending).  It returns the 4-tuple (colour, radii,
-depth, alpha) that ``render_flow`` consumes, bins its splats with the
-surfel pipeline's ``bin_gaussians`` and differentiates through autograd.
+depth, alpha) that ``render_flow`` consumes and bins its splats with the
+surfel pipeline's ``bin_gaussians``.  On the card the tile blend is the
+hand-written pair K5 (forward) and K6 (VJP) of ``csrc/raster3d.cu``
+(``ops/cuda/raster3d.py``); on the CPU the same wrappers run
+``blend3d_plain`` and its autograd VJP.
 
 The JAX package walks each tile's pairs in chunks of ``cfg.chunk`` with a
-nested ``lax.scan`` (pair by pair inside a chunk).  Here a chunk is one
-set of tensor ops: within a chunk the transmittance never rises, so the
-pairs still blended (T > T_CUTOFF) are a prefix, and with
+nested ``lax.scan`` (pair by pair inside a chunk).  In ``blend3d_plain``
+a chunk is one set of tensor ops: within a chunk the transmittance never
+rises, so the pairs still blended (T > T_CUTOFF) are a prefix, and with
 ``P_i = T_start * prod_{j<i} (1 - a_j)`` the pair weights are
 ``a_i * P_i * [P_i > T_CUTOFF]`` and the chunk's end transmittance is
 ``P`` after that prefix.  ALPHA_CLIP keeps every factor >= 0.01, so the
@@ -29,8 +32,10 @@ from .binning import bin_gaussians
 from .projection import Preprocessed, matmul_fma, tile_grid
 from .tiled_raster import _tile_pixels, tiles_to_image
 
-# renders and chunks walked since the last reset, for callers that time
-# the flow path (set both to 0 to start counting)
+# renders and chunks of the plain walk (``blend3d_plain``) since the
+# last reset, for callers that time the flow path (set both to 0 to
+# start counting; on the CPU a backward walks once more, its VJP's
+# recomputation); the kernel route counts its launches instead
 WALK_COUNTS = {"renders": 0, "chunks": 0}
 
 
@@ -165,53 +170,52 @@ def _blend_chunk(T0, C0, D0, pix, con, cen, col, dz, op):
     return T1, C1, D1
 
 
-def rasterize_3dgs(means3d, scales, quats, opacities, colors, cam: Camera,
-                   bg=None, scale_modifier: float = 1.0,
-                   cov3d_precomp=None, cfg: RasterConfig = RasterConfig()):
-    """The 3DGS pipeline.  colors: [N,C] precomputed (``render_flow``
-    passes the uvz flow).  Returns (image [H,W,C], radii [N] int32,
-    depth [H,W,1], alpha [H,W,1]), as the JAX function.
+def blend3d_plain(conic: torch.Tensor, center: torch.Tensor,
+                  colors: torch.Tensor, depth: torch.Tensor,
+                  opac: torch.Tensor, pair_gid: torch.Tensor,
+                  tile_start: torch.Tensor, tile_count: torch.Tensor,
+                  grid_x: int, chunk: int = 64, tile_cap: int = 4096):
+    """The plain version of K5 (``csrc/raster3d.cu``): blend each tile's
+    depth-ordered pairs ``pair_gid[tile_start[t]:][:tile_count[t]]`` (int32
+    Gaussian ids) into its 256 pixels, ``chunk`` pairs at a time, with
+    the per-Gaussian conic [N,3], centre [N,2], colours [N,C], view depth
+    [N] and opacity [N] (0 for an invalid splat).  Returns the tile state
+    (T [tiles, 256], colour sums [tiles, 256, C], depth sums [tiles,
+    256]).
 
-    As the JAX function: pixels are sampled at their corners, and at most
+    As the JAX walk: pixels are sampled at their corners, and at most
     ``floor(tile_cap / chunk) * chunk`` pairs of a tile are blended.  The
     walk stops after the chunks the fullest tile needs,
     ``ceil(max tile_count / chunk)``; reading that bound (and which tiles
-    reach each chunk) from the tile counts is one host synchronisation
-    per render.  Each chunk runs under ``torch.utils.checkpoint``, so the
-    backward recomputes its [tiles, chunk, 256] intermediates instead of
-    keeping them."""
-    H, W = cam.H, cam.W
-    dev = means3d.device
+    reach each chunk) from the tile counts is one host synchronisation.
+    Each chunk runs under ``torch.utils.checkpoint``, so the backward
+    recomputes its [tiles, chunk, 256] intermediates instead of keeping
+    them."""
+    dev = conic.device
     C = colors.shape[-1]
-    gx, gy = tile_grid(H, W)
-    if bg is None:
-        bg = torch.zeros((C,), dtype=torch.float32, device=dev)
-    prep = preprocess3d(means3d, scales, quats, cam, scale_modifier,
-                        cov3d_precomp)
-    opac = torch.where(prep.valid, opacities.reshape(-1), 0.0)
-    # circle cull with the exact conic bound (sigma_max = radius/3) and
-    # the corner-sample rect convention of this blend
-    binning = bin_gaussians(_as_surfel_prep(prep), gx, gy, cfg,
-                            opacity=opac,
-                            cull_sigma=prep.radius.to(torch.float32) / 3.0,
-                            pixel_offset=0.0)
-
-    num_tiles = gx * gy
+    num_tiles = tile_start.shape[0]
     P = TILE * TILE
-    k = cfg.chunk
-    pix_all = _tile_pixels(gx, torch.arange(num_tiles, device=dev)) - 0.5
-    counts = binning.tile_count.cpu()            # the one host sync
-    n_chunks = max(cfg.tile_cap // k, 1)
+    k = chunk
+    pix_all = _tile_pixels(grid_x, torch.arange(num_tiles, device=dev)) - 0.5
+    counts = tile_count.cpu()                    # the one host sync
+    n_chunks = max(tile_cap // k, 1)
     n_walk = min(-(-int(counts.max()) // k), n_chunks) if num_tiles else 0
     WALK_COUNTS["renders"] += 1
     WALK_COUNTS["chunks"] += n_walk
-    gid = binning.pair_gid.long()
-    start = binning.tile_start.long()
-    end = start + binning.tile_count.long()
+    gid = pair_gid.long()
+    start = tile_start.long()
+    end = start + tile_count.long()
 
     T_acc = torch.ones((num_tiles, P), device=dev)
     C_acc = torch.zeros((num_tiles, P, C), device=dev)
     D_acc = torch.zeros((num_tiles, P), device=dev)
+    if n_walk == 0:
+        # no pair (an empty view): the state still depends on the inputs,
+        # with zero gradients, as the JAX scan's and the kernels' do, so a
+        # backward through it gives zeros instead of raising (adding the
+        # empty sums' +0.0 leaves every value as it is)
+        link = sum(x[:0].sum() for x in (conic, center, colors, depth, opac))
+        return T_acc + link, C_acc + link, D_acc + link
     arange_k = torch.arange(k, device=dev)
     for ci in range(n_walk):
         # the tiles whose lists reach this chunk; the rest are done
@@ -222,15 +226,66 @@ def rasterize_3dgs(means3d, scales, quats, opacities, colors, cam: Camera,
         op = torch.where(ok, opac[ids], 0.0)
         T1, C1, D1 = checkpoint(
             _blend_chunk, T_acc[tiles], C_acc[tiles], D_acc[tiles],
-            pix_all[tiles], prep.conic[ids], prep.center[ids], colors[ids],
-            prep.depth[ids], op, use_reentrant=False)
+            pix_all[tiles], conic[ids], center[ids], colors[ids],
+            depth[ids], op, use_reentrant=False)
         T_acc = T_acc.index_copy(0, tiles, T1)
         C_acc = C_acc.index_copy(0, tiles, C1)
         D_acc = D_acc.index_copy(0, tiles, D1)
+    return T_acc, C_acc, D_acc
 
+
+def blend3d_inputs(means3d, scales, quats, opacities, colors, cam: Camera,
+                   scale_modifier: float = 1.0, cov3d_precomp=None,
+                   cfg: RasterConfig = RasterConfig()):
+    """``preprocess3d`` and the binning of ``rasterize_3dgs`` (plain torch
+    on either device; autograd carries their backward).  Returns (prep,
+    the tile blend's arguments as ``blend3d_plain`` and ``Blend3D`` take
+    them, each tensor contiguous)."""
+    gx, gy = tile_grid(cam.H, cam.W)
+    prep = preprocess3d(means3d, scales, quats, cam, scale_modifier,
+                        cov3d_precomp)
+    opac = torch.where(prep.valid, opacities.reshape(-1), 0.0)
+    # circle cull with the exact conic bound (sigma_max = radius/3) and
+    # the corner-sample rect convention of this blend
+    binning = bin_gaussians(_as_surfel_prep(prep), gx, gy, cfg,
+                            opacity=opac,
+                            cull_sigma=prep.radius.to(torch.float32) / 3.0,
+                            pixel_offset=0.0)
+    tensors = (prep.conic, prep.center, colors, prep.depth, opac,
+               binning.pair_gid, binning.tile_start, binning.tile_count)
+    return prep, (*(t.contiguous() for t in tensors), gx, cfg.chunk,
+                  cfg.tile_cap)
+
+
+def blend3d_images(T_acc, C_acc, D_acc, bg, H: int, W: int):
+    """The tile state of the blend (T, colour sums, depth sums) -> (image
+    [H,W,C] = colour + T * bg, depth [H,W,1], alpha [H,W,1] = 1 - T)."""
+    gx, gy = tile_grid(H, W)
     tile_color = C_acc + T_acc[..., None] * bg[None, None, :]
     image = tiles_to_image(tile_color, gx, gy, H, W)
     depth = tiles_to_image(D_acc[..., None], gx, gy, H, W)
     alpha_img = tiles_to_image(1.0 - T_acc[..., None], gx, gy, H, W)
-    return image, prep.radius, depth, alpha_img
+    return image, depth, alpha_img
 
+
+def rasterize_3dgs(means3d, scales, quats, opacities, colors, cam: Camera,
+                   bg=None, scale_modifier: float = 1.0,
+                   cov3d_precomp=None, cfg: RasterConfig = RasterConfig()):
+    """The 3DGS pipeline.  colors: [N,C] precomputed (``render_flow``
+    passes the uvz flow).  Returns (image [H,W,C], radii [N] int32,
+    depth [H,W,1], alpha [H,W,1]), as the JAX function.
+
+    ``preprocess3d`` and the binning are plain torch on either device
+    (``blend3d_inputs``); the tile blend is ``Blend3D``, whose wrappers
+    launch K5 and K6 on CUDA tensors (one launch each, no read of the
+    counts; a build or launch failure raises) and run ``blend3d_plain``
+    and its autograd VJP on CPU tensors."""
+    from .cuda.raster3d import Blend3D
+    C = colors.shape[-1]
+    if bg is None:
+        bg = torch.zeros((C,), dtype=torch.float32, device=means3d.device)
+    prep, args = blend3d_inputs(means3d, scales, quats, opacities, colors,
+                                cam, scale_modifier, cov3d_precomp, cfg)
+    image, depth, alpha = blend3d_images(*Blend3D.apply(*args), bg, cam.H,
+                                         cam.W)
+    return image, prep.radius, depth, alpha

@@ -43,6 +43,11 @@ ROW_N_BLEND = 15       # pairs blended per pixel (work counter)
 CKPT_ROWS = (ROW_T, ROW_D1, ROW_D2, 4, 5, 6, ROW_DEPTH, 8, 9, 10,
              ROW_DISTORTION)
 NCKPT = len(CKPT_ROWS)
+# a plain walk's threshold-test rows (blend_walk with ``decisions``): T
+# before and after the median pair, the pairs blended up to and with it,
+# T after the tripping pair (NaN where there is none)
+DEC_MED, DEC_MED_AFTER, DEC_N_MED, DEC_TRIP = 0, 1, 2, 3
+NDEC = 4
 
 
 def _tile_pixels(grid_x: int, tile_ids: torch.Tensor) -> torch.Tensor:
@@ -65,7 +70,8 @@ def pack_features(Tmat, center, normal, colors, opacity) -> torch.Tensor:
 
 
 def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
-               tile_ids: torch.Tensor, checkpoints: int | None = None):
+               tile_ids: torch.Tensor, checkpoints: int | None = None,
+               decisions: bool = False):
     """Blend each of T tiles' first ``count[t]`` pairs, ``chunk`` at a
     time: ``chunk_rows(c0)`` gives the features [T, chunk, NFEAT] of rows
     c0..c0+chunk-1 of every tile (any values past a tile's count);
@@ -78,12 +84,17 @@ def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
     [0, k*seg) for k = 1..n, n = ceil(max(count) / seg) - 1 (a tile's
     final state past its own count), and records [T, 2, PIX] int32 the
     position of each pixel's last blended pair and of its median pair
-    (-1 for none)."""
+    (-1 for none).  With ``decisions`` (and no ``checkpoints``) it returns
+    ``(rows, dec)``: dec [T, NDEC, PIX] the transmittances the walk's
+    threshold tests read (rows DEC_*; ``BlendState``'s ``t_med``,
+    ``t_med_after``, ``n_med``, ``t_trip``), for judging a kernel's flips
+    (``ops/cuda/blend.compare_states``).  The state rows do not change."""
     num_tiles = count.shape[0]
     dev = tile_ids.device
     pix = _tile_pixels(grid_x, tile_ids)                    # [T,P,2]
     state = B.init_state((num_tiles, PIX), device=dev,
-                         positions=checkpoints is not None)
+                         positions=checkpoints is not None,
+                         decisions=decisions)
     count = count.long()
     max_count = int(count.max()) if num_tiles else 0
     if checkpoints is not None and checkpoints % chunk:
@@ -105,6 +116,9 @@ def blend_walk(chunk_rows, count: torch.Tensor, grid_x: int, chunk: int,
                               n_rows=torch.clamp(count - c0, 0, chunk),
                               offset=c0)
     rows = _state_rows(state)
+    if decisions:
+        return rows, torch.stack([state.t_med, state.t_med_after,
+                                  state.n_med, state.t_trip], dim=1)
     if checkpoints is None:
         return rows
     ckpt = torch.stack(ckpt, dim=1) if ckpt else \
@@ -125,7 +139,8 @@ def _state_rows(state) -> torch.Tensor:
 def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
                       tile_start: torch.Tensor, tile_count: torch.Tensor,
                       grid_x: int, chunk: int = 64,
-                      tile_ids: torch.Tensor | None = None) -> torch.Tensor:
+                      tile_ids: torch.Tensor | None = None,
+                      decisions: bool = False):
     """Blend every tile's pair list in chunks (port of blend_tiles_xla).
 
     feats_sorted: [N, NFEAT] features in depth order (feats[order]);
@@ -133,7 +148,8 @@ def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     ``bin_gaussians`` (the count clamped at ``tile_cap`` by the caller).
     ``tile_ids`` (optional) gives the grid index of each of the T tiles,
     when they are a subset of the grid (default: the whole grid in
-    order).  Returns the state rows [T, NSTATE, PIX]."""
+    order).  Returns the state rows [T, NSTATE, PIX]; with ``decisions``
+    also the threshold-test rows [T, NDEC, PIX] (``blend_walk``)."""
     dev = feats_sorted.device
     if tile_ids is None:
         tile_ids = torch.arange(tile_start.shape[0], device=dev)
@@ -145,7 +161,8 @@ def blend_tiles_plain(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         offs = torch.clamp(start[:, None] + c0 + lane[None, :], 0,
                            n_pairs - 1)
         return feats_sorted[pair_rank[offs].long()]
-    return blend_walk(chunk_rows, tile_count, grid_x, chunk, tile_ids)
+    return blend_walk(chunk_rows, tile_count, grid_x, chunk, tile_ids,
+                      decisions=decisions)
 
 
 def state_to_maps(state: torch.Tensor):

@@ -468,3 +468,108 @@ def test_global_tile_map_on_gpu(cuda, kind):
             scale = d_plain.abs().amax(dim=0) + 1e-8
             torch.testing.assert_close(d_kernel / scale, d_plain / scale,
                                        **GRAD)
+
+
+def _flow_blend_args(cam, means, scales, quats, opac, colors, cfg):
+    """The arguments rasterize_3dgs hands its tile blend (K5/K6 or
+    blend3d_plain) for a scene."""
+    from d2dgs_torch.ops.raster3d import blend3d_inputs
+    return blend3d_inputs(means, scales, quats, opac, colors, cam,
+                          cfg=cfg)[1]
+
+
+def _flow_scene(kind, dev):
+    """A 48x64 check scene (``blend_test_scene``), or a full-width random
+    one: 800x800, 30,000 Gaussians of the phase-3 camera's scale."""
+    if kind != "full":
+        return _scene(kind == "opaque", dev, packed=kind == "packed")
+    g = torch.Generator().manual_seed(11)
+    n = 30_000
+    arrs = [torch.randn(n, 3, generator=g) * 0.6,
+            torch.exp(torch.randn(n, 3, generator=g) * 0.3) * 0.02,
+            torch.nn.functional.normalize(torch.randn(n, 4, generator=g),
+                                          dim=-1),
+            0.3 + 0.69 * torch.rand(n, generator=g),
+            torch.rand(n, 3, generator=g) - 0.5]
+    cam = orbit_camera(0.3, 0.25, 4.0, fov=0.69, H=800, W=800, device=dev)
+    return cam, [a.to(dev) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_cap, chunk", [(4096, 64), (100, 32)],
+                         ids=["cap4096", "cap100"])
+@pytest.mark.parametrize("kind", ["pallas", "opaque", "packed", "full"])
+def test_blend3d_kernels_match_plain_on_gpu(cuda, kind, tile_cap, chunk):
+    """K5 against blend3d_plain on the same CUDA inputs (T and the colour
+    sums to 2e-5, the depth sum to 2e-4: the flow path's image, alpha and
+    depth tolerances), and K6 (Blend3D's backward) against the autograd
+    VJP through blend3d_plain, with a cotangent from a seed, each input's
+    gradient max-normalised to GRAD; one launch of each."""
+    from d2dgs_torch.ops.cuda.raster3d import (Blend3D, blend3d_bwd,
+                                               blend3d_fwd,
+                                               blend3d_plain_vjp)
+    from d2dgs_torch.ops.raster3d import blend3d_plain
+    cam, arrs = _flow_scene(kind, cuda)
+    args = _flow_blend_args(cam, *arrs, RasterConfig(tile_cap=tile_cap,
+                                                     chunk=chunk))
+    assert int(args[7].sum()) > 0
+    xs = [a.clone().requires_grad_() for a in args[:5]]
+    before = (blend3d_fwd.launches, blend3d_bwd.launches)
+    out = Blend3D.apply(*xs, *args[5:])
+    plain = blend3d_plain(*args)
+    torch.cuda.synchronize()
+    for k, p, tol in zip(out, plain, (2e-5, 2e-5, 2e-4)):
+        torch.testing.assert_close(k.detach(), p, rtol=0, atol=tol)
+    g = [torch.randn(o.shape, generator=torch.Generator().manual_seed(5))
+         .to(cuda) for o in out]
+    d_kernel = torch.autograd.grad(out, xs, g)
+    torch.cuda.synchronize()
+    assert (blend3d_fwd.launches, blend3d_bwd.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    d_plain = blend3d_plain_vjp(*args[:9], *g, chunk=chunk,
+                                tile_cap=tile_cap)
+    for a, b in zip(d_kernel, d_plain):
+        scale = b.abs().max() + 1e-8
+        assert float(scale) > 1e-6
+        torch.testing.assert_close(a / scale, b / scale, **GRAD)
+
+
+@pytest.mark.cuda
+def test_blend3d_kernels_on_an_empty_view(cuda):
+    """No pair: rasterize_3dgs on the card renders the background, and
+    its backward (K6) gives zero gradients."""
+    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd
+    from d2dgs_torch.ops.raster3d import rasterize_3dgs
+    cam, arrs = _scene(False, cuda)
+    arrs[0] = 1.5 * cam.cam_center[None] + 0.1 * arrs[0]   # behind it
+    xs = [a.clone().requires_grad_() for a in arrs]
+    bg = torch.tensor([0.2, 0.1, 0.4], device=cuda)
+    before = blend3d_bwd.launches
+    img, radii, depth, alpha = rasterize_3dgs(*xs, cam, bg=bg)
+    grads = torch.autograd.grad(img.sum() + depth.sum() + alpha.sum(), xs,
+                                allow_unused=True)
+    assert blend3d_bwd.launches == before + 1
+    assert torch.equal(img, bg.expand_as(img)) and not radii.any()
+    assert not depth.any() and not alpha.any()
+    assert all(g is None or not g.any() for g in grads)
+
+
+@pytest.mark.cuda
+def test_blend3d_wrappers_refuse_bad_inputs_on_gpu(cuda):
+    """K5's and K6's wrappers raise on a CPU tensor among CUDA ones, a
+    wrong dtype and a colour count the kernels are not built for."""
+    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_fwd
+    cam, arrs = _scene(False, cuda)
+    args = list(_flow_blend_args(cam, *arrs, RasterConfig()))
+    with pytest.raises(ValueError, match="expected cuda"):
+        blend3d_fwd(*args[:4], args[4].cpu(), *args[5:])
+    with pytest.raises(TypeError, match="int32"):
+        blend3d_fwd(*args[:5], args[5].long(), *args[6:])
+    four = torch.cat([args[2], args[2][:, :1]], -1)
+    with pytest.raises(ValueError, match="channels"):
+        blend3d_fwd(*args[:2], four, *args[3:])
+    nt = args[6].shape[0]
+    T = torch.ones(nt, 256, device=cuda)
+    walk = torch.zeros(nt, 256, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="gC has shape"):
+        blend3d_bwd(*args[:9], T, walk, T, T, T)

@@ -3,9 +3,11 @@
 Runs ``d2dgs_torch.ops.raster3d.rasterize_3dgs`` on the flow inputs of
 ``chip_smoke.py`` phase 8 (the phase-3 scene: 83,252 Gaussians, 800x800,
 the flow between two times of one orbit camera) under ``torch.profiler``,
-forward alone and forward plus backward, and prints for each: the wall
-time between two device synchronisations, the summed device time of the
-CUDA kernels it launched, the kernel count, the device's idle share
+forward alone and forward plus backward, on each route of its tile blend
+(the kernels K5/K6 of csrc/raster3d.cu, then the plain walk
+``blend3d_plain``, then the kernels again), and prints for each: the
+wall time between two device synchronisations, the summed device time of
+the CUDA kernels it launched, the kernel count, the device's idle share
 (1 - device time / wall time) and the kernels with the most device time.
 Needs an NVIDIA GPU; run from the repository root:
 
@@ -59,7 +61,6 @@ def main() -> int:
     import chip_smoke as cs
     from d2dgs_torch.config import RasterConfig
     from d2dgs_torch.data.synthetic import video_cameras
-    from d2dgs_torch.ops.raster3d import rasterize_3dgs
     dev = torch.device("cuda")
     print(cs.gpu_name_power(), torch.__version__, flush=True)
     gauss, nodes, deform_cfg = cs.full_scene(dev)
@@ -72,20 +73,21 @@ def main() -> int:
     w = torch.rand((cam1.H, cam1.W, 5), device=dev,
                    generator=torch.Generator(device=dev).manual_seed(3))
 
-    def fwd():
+    def fwd(plain):
         with torch.no_grad():
-            rasterize_3dgs(*inputs, cam1, cfg=cfg)
+            cs.flow_raster_route(plain, inputs, cam1, cfg)
 
-    def fwd_bwd():
-        img, _, depth, alpha = rasterize_3dgs(*xs, cam1, cfg=cfg)
-        torch.autograd.grad(torch.sum(torch.cat([img, depth, alpha], -1)
-                                      * w), xs)
+    def fwd_bwd(plain):
+        out = cs.flow_raster_route(plain, xs, cam1, cfg)
+        torch.autograd.grad(torch.sum(torch.cat(out, -1) * w), xs)
 
-    for name, fn in (("forward", fwd), ("forward + backward", fwd_bwd)):
-        r = profile(fn)
-        print(f"{name}: wall {r['wall_ms']:.2f} ms, device {r['device_ms']:.2f}"
-              f" ms in {r['kernels']} kernels, idle share "
-              f"{r['idle_share']:.3f}; top {r['top']}", flush=True)
+    for route, plain in (("kernels", False), ("plain", True),
+                         ("kernels", False)):
+        for name, fn in (("forward", fwd), ("forward + backward", fwd_bwd)):
+            r = profile(lambda: fn(plain))
+            print(f"{route}, {name}: wall {r['wall_ms']:.2f} ms, device "
+                  f"{r['device_ms']:.2f} ms in {r['kernels']} kernels, idle "
+                  f"share {r['idle_share']:.3f}; top {r['top']}", flush=True)
     return 0
 
 
