@@ -109,18 +109,29 @@ Phases (each one fails the run with a non-zero exit):
      resizes it); checks the flow term of the unperturbed scene against
      its own target (< 1e-6), rasterize_3dgs on the card (its blend
      through K5/K6) against the CPU (the plain walk) on a 16x16-tile crop
-     (radii bitwise, image and alpha to 2e-5, depth to 2e-4); K5 against
-     blend3d_plain on the card over the whole view (T and colours to
-     2e-5, depth to 2e-4) and K6 against the plain autograd VJP with a
-     seeded cotangent (each input max-normalised to GRAD); that a
-     main-stage step with a flow sample updates the deform MLP otherwise
-     than one without, and K6 against the plain VJP on that step's own
-     flow-loss cotangent; then `cli train --resume` for 40 main-stage
-     steps (lambda_optical 0.1, the motion-mask term off): a flow sample
-     in every step, one K1, K2, K5 and K6 launch per step, none of K3/K4
-     and no chunk of the plain walk, finite losses and a finite
-     checkpoint; prints K5's and K6's times, bounds and plain times,
-     rasterize_3dgs's forward and forward-plus-backward times through
+     (radii bitwise, image and alpha to 2e-5, depth to 2e-4, a pixel
+     whose blended pair count differs judged by the threshold band and
+     left out); K5 (two passes: 64-pair units, then (tile, 256-pair
+     segment) items folded per tile) against blend3d_plain on the card
+     over the whole view (T bitwise on tiles of one segment; a pixel that
+     blends one pair more or less must lie within the threshold band of
+     compare_blend3d; every other pixel T and colours to 2e-5, depth to
+     2e-4, the same evaluated and blended counts) and K6 (one CTA per
+     item) against the plain autograd VJP with a seeded cotangent (zero
+     at the judged flips; each input max-normalised to GRAD); one
+     Blend3D forward and backward under
+     torch.cuda.set_sync_debug_mode("error"); that a main-stage step
+     with a flow sample updates the deform MLP otherwise than one
+     without, and K5 and K6 against their plain versions on that step's
+     own inputs and flow-loss cotangent; then `cli train --resume` for 40
+     main-stage steps (lambda_optical 0.1, the motion-mask term off): a
+     flow sample in every step, one K1, K2, K5 and K6 launch per step,
+     none of K3/K4 and no chunk of the plain walk, finite losses and a
+     finite checkpoint; prints K5's and K6's times, bounds and plain
+     times, their work items and units, pass A's evaluations, the share
+     of (pair, warp) tests the cull refused, each unit's and item's
+     %globaltimer duration, rasterize_3dgs's forward and
+     forward-plus-backward times through
      the kernels and through the plain walk (in turns), a main-stage
      step's time with and without the flow term and their peak memory,
      and the CLI steps' times;
@@ -203,18 +214,22 @@ OPS_BLEND = 39
 # running sums (143), and its 18 gradients join the cross-pixel sum (18).
 OPS_BWD_BLEND = 143 + 18
 # csrc/raster3d.cu at C = 3, float32 operations per (pair, pixel), counted
-# from the kernels' code.  K5: every evaluated pair (the two offsets, the
-# quadratic form's 9, expf counted as 1, the opacity product, the clip,
-# the two cut tests and the loop's T and alpha tests) 18; every blended
-# pair (w, the 3 colour and the depth multiply-adds, 1 - alpha, T) 11.
-# K6: every pair up to a pixel's last blended one repeats the response
-# without the T test (17); every blended pair adds the pre-blend T and w
-# (3), the weight's adjoint (8), the colour and depth gradients (4), the
-# alpha adjoint and the running sum (5), the clip and the opacity and
-# power adjoints (4), the conic's (9) and the centre's (8) gradients, and
-# its 10 gradients join the warp's sum (10): 51.
-OPS_EVAL_3D, OPS_BLEND_3D = 18, 11
-OPS_BWD_EVAL_3D, OPS_BWD_BLEND_3D = 17, 51
+# from `pair_alpha` and the kernels' walks, of the pairs a sequential walk
+# evaluates.  Every such pair costs the two offsets, the quadratic form's
+# 9 and the cut's compare (12), all that a pair the cut refuses costs.  A
+# pair with alpha > 0 (a blended one) adds expf counted as 1, the opacity
+# product, the clip, the two cut tests and the alpha test (6); a pair
+# refused after the cut (power > 0, or alpha below 1/255 inside the cut's
+# margin) is counted at 12 too, so the bound stays below the work.  K5's
+# blend: w, the 3 colour and the depth multiply-adds (8, no fma), 1 -
+# alpha, T and the T test (12).  K6 re-walks every pair up to a pixel's
+# last blended one; its blend adds the pre-blend T and w (3), the
+# weight's adjoint (8), the colour and depth gradients (4), the alpha
+# adjoint and the running sum (5), the clip and the opacity and power
+# adjoints (4), the conic's (9) and the centre's (8) gradients, and its
+# 10 gradients join the warp's sum (10): 51.
+OPS_EVAL_3D, OPS_KEPT_3D = 12, 6
+OPS_BLEND_3D, OPS_BWD_BLEND_3D = 12, 51
 
 # kernel-vs-plain tolerances per state row: d2dgs_torch.ops.cuda.blend
 # TIGHT and AUX, judged by its compare_states
@@ -1946,9 +1961,6 @@ def phase_7(dev, card) -> dict:
 FLOW_SMALL = 400        # the size of every fourth flow file
 FLOW_STEPS = 40         # main-stage steps of `cli train --resume`
 N_TIMES = 4             # the scene's times per camera (write_scene)
-# the CPU parity tolerances of the 3DGS rasterizer
-# (tests/test_torch_raster3d.py): image and alpha, depth
-FLOW_IMG_TOL, FLOW_DEPTH_TOL = 2e-5, 2e-4
 CROP_TILES = 16         # the CPU check's crop, in tiles a side
 MIN_SOLID = 10_000      # pixels of the self-check's view with alpha > 0.9
 
@@ -2040,9 +2052,19 @@ def flow_crop_check(dev, inputs, cam, cfg) -> dict:
     on the CPU over the CROP_TILES x CROP_TILES tiles around the splats'
     median centre: the CPU call gets the splats whose tile rect meets the
     crop (every pair of the crop's tiles; the others only change pixels
-    outside it)."""
-    from d2dgs_torch.ops.raster3d import preprocess3d, rasterize_3dgs
+    outside it).  K5 on the card and the plain walk on the CPU blend the
+    crop's tiles from the same pair lists: a pixel whose blended count
+    differs (a flip) must lie within the threshold band
+    (``compare_blend3d``) and is left out of the image comparison; every
+    other pixel is held to compare_blend3d's IMG_TOL (image, alpha) and
+    DEPTH_TOL (depth)."""
+    from d2dgs_torch.ops.cuda.raster3d import (DEPTH_TOL, IMG_TOL,
+                                               blend3d_fwd, compare_blend3d,
+                                               walk_cap)
     from d2dgs_torch.ops.projection import tile_grid
+    from d2dgs_torch.ops.raster3d import (blend3d_inputs, blend3d_plain,
+                                          preprocess3d, rasterize_3dgs)
+    from d2dgs_torch.ops.tiled_raster import PIX, tiles_to_image
     means, scales, quats, opac, colors = inputs
     with torch.no_grad():
         img, radii, depth, alpha = rasterize_3dgs(*inputs, cam, cfg=cfg)
@@ -2059,36 +2081,70 @@ def flow_crop_check(dev, inputs, cam, cfg) -> dict:
     cpu_cam = dataclasses.replace(
         cam, **{f: getattr(cam, f).cpu()
                 for f in ("w2c", "cam_center", "fx", "fy", "time")})
+    cpu_inputs = [a[sel].cpu() for a in inputs]
     t0 = time.time()
     with torch.no_grad():
         c_img, c_radii, c_depth, c_alpha = rasterize_3dgs(
-            *(a[sel].cpu() for a in inputs), cpu_cam, cfg=cfg)
+            *cpu_inputs, cpu_cam, cfg=cfg)
     cpu_s = time.time() - t0
+    # the crop's tiles through K5 (with its work rows) and the plain walk
+    # (with its decisions)
+    ty, tx = torch.meshgrid(torch.arange(cy, cy + CROP_TILES),
+                            torch.arange(cx, cx + CROP_TILES), indexing="ij")
+    tiles = (ty * gx + tx).flatten()
+    with torch.no_grad():
+        _, args = blend3d_inputs(*inputs, cam, cfg=cfg)
+        work = torch.empty((args[6].shape[0], 2, PIX), dtype=torch.int32,
+                           device=dev)
+        card = [t[tiles.to(dev)].cpu() for t in blend3d_fwd(*args,
+                                                            work=work)]
+        _, c_args = blend3d_inputs(*cpu_inputs, cpu_cam, cfg=cfg)
+        *plain, dec = blend3d_plain(*c_args, decisions=True)
+    if not torch.equal(args[7][tiles.to(dev)].cpu(), c_args[7][tiles]):
+        raise AssertionError("phase 8: the crop's tiles hold other pairs on "
+                             "the CPU than on the card")
+    band = compare_blend3d(card, work[tiles.to(dev)].cpu(),
+                           [t[tiles] for t in plain], dec[tiles],
+                           torch.clamp(c_args[7][tiles],
+                                       max=walk_cap(cfg.chunk, cfg.tile_cap)))
+    if band["outside_band"]:
+        raise AssertionError(f"phase 8: the card's K5 and the CPU's plain "
+                             f"walk blend other pair counts outside the "
+                             f"threshold band on the crop: "
+                             + json.dumps({k: v for k, v in band.items()
+                                           if k != "flip_mask"}))
+    flip = torch.zeros(gx * gy, PIX, dtype=torch.bool)
+    flip[tiles] = band["flip_mask"]
+    keep = ~tiles_to_image(flip[..., None], gx, gy, cam.H, cam.W)[..., 0]
     ys = slice(cy * 16, min((cy + CROP_TILES) * 16, cam.H))
     xs = slice(cx * 16, min((cx + CROP_TILES) * 16, cam.W))
-    err = {"image": float((img[ys, xs].cpu() - c_img[ys, xs]).abs().max()),
-           "alpha": float((alpha[ys, xs].cpu()
-                           - c_alpha[ys, xs]).abs().max()),
-           "depth": float((depth[ys, xs].cpu()
-                           - c_depth[ys, xs]).abs().max())}
+    keep = keep[ys, xs]
+    err = {name: float((a[ys, xs].cpu() - b[ys, xs]).abs()[keep].max())
+           for name, a, b in (("image", img, c_img), ("alpha", alpha,
+                                                       c_alpha),
+                              ("depth", depth, c_depth))}
     if not torch.equal(radii[sel].cpu(), c_radii):
         raise AssertionError("phase 8: rasterize_3dgs radii differ between "
                              "the card and the CPU")
-    if (err["image"] > FLOW_IMG_TOL or err["alpha"] > FLOW_IMG_TOL
-            or err["depth"] > FLOW_DEPTH_TOL):
+    if (err["image"] > IMG_TOL or err["alpha"] > IMG_TOL
+            or err["depth"] > DEPTH_TOL):
         raise AssertionError(f"phase 8: rasterize_3dgs on the card against "
                              f"the CPU on the crop: {err}")
     if float(c_alpha[ys, xs].max()) <= 0.5:
         raise AssertionError("phase 8: the CPU check's crop is empty")
     return dict(err, splats=int(sel.sum()), crop_tile=[cx, cy],
-                cpu_s=cpu_s)
+                cpu_s=cpu_s, flipped=band["flipped"],
+                in_band=band["in_band"],
+                band_max_share=band["band_max_share"])
 
 
 def blend3d_bound(args, work, n_walk=None) -> dict:
     """Least time of K5 (or, given K6's ``n_walk``, of K6) on one view:
     float32 operations of the pairs each pixel evaluated and blended
     (K5's ``work`` counts; K6 re-walks the ``n_walk`` pairs up to each
-    pixel's last blended one), against the Gaussian rows, the pair list
+    pixel's last blended one; every evaluated pair with alpha > 0 is
+    blended, so the others, ``n_eval - n_blend``, are those the walk
+    refuses), against the Gaussian rows, the pair list
     and the tile arrays read once, plus K5's per-pixel rows written once
     (T, the colour and depth sums, n_walk) or K6's read once (T, n_walk,
     the cotangents) and its gradients written once."""
@@ -2101,11 +2157,12 @@ def blend3d_bound(args, work, n_walk=None) -> dict:
     n_blend = float(work[:, 1].to(torch.float64).sum())
     if n_walk is None:
         n_eval = float(work[:, 0].to(torch.float64).sum())
-        ops = OPS_EVAL_3D * n_eval + OPS_BLEND_3D * n_blend
+        ops = OPS_EVAL_3D * n_eval + (OPS_KEPT_3D + OPS_BLEND_3D) * n_blend
         nbytes += pixels * (3 + c) * 4
     else:
         n_eval = float(n_walk.to(torch.float64).sum())
-        ops = OPS_BWD_EVAL_3D * n_eval + OPS_BWD_BLEND_3D * n_blend
+        ops = (OPS_EVAL_3D * n_eval
+               + (OPS_KEPT_3D + OPS_BWD_BLEND_3D) * n_blend)
         nbytes += pixels * (4 + c) * 4 + gauss_bytes
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return {"n_eval": n_eval, "n_blend": n_blend, "ops": ops,
@@ -2114,26 +2171,57 @@ def blend3d_bound(args, work, n_walk=None) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def check_blend3d(tag, label, out, plain) -> dict:
-    """K5's tile state (T, colour sums, depth sums) against
-    blend3d_plain's on the same inputs: T and the colours to FLOW_IMG_TOL
-    and the depth to FLOW_DEPTH_TOL (the view's alpha, image and depth);
-    also counts the pixels whose termination (T <= T_CUTOFF) differs.
-    Raises past the tolerances."""
-    from d2dgs_torch.config import T_CUTOFF
-    names = ("T", "colour", "depth")
-    err = {n: float((k - p).abs().max()) for n, k, p in zip(names, out,
-                                                              plain)}
-    flips = int(((out[0] <= T_CUTOFF) != (plain[0] <= T_CUTOFF)).sum())
-    finite = all(bool(torch.isfinite(k).all()) for k in out)
-    log(f"[{tag}] {label}: max |err| {json.dumps(err)}; pixels whose "
-        f"termination differs {flips}/{out[0].numel()}")
-    if not finite or err["T"] > FLOW_IMG_TOL or \
-            err["colour"] > FLOW_IMG_TOL or err["depth"] > FLOW_DEPTH_TOL:
+def check_blend3d(tag, label, args, state, work) -> dict:
+    """K5's tile state (T, colour sums, depth sums) and work rows against
+    blend3d_plain's on the same inputs, by ``compare_blend3d``: T bitwise
+    on every tile of one 256-pair segment; each pixel whose blended pair
+    count differs (a flip) must be of one pair and lie within the
+    threshold band, BAND_ULPS ulps of T_CUTOFF per pair blended up to
+    there, whatever the count of flips; every other pixel within
+    compare_blend3d's IMG_TOL (T, colours) and DEPTH_TOL (depth), with
+    the same evaluated and blended pair
+    counts.  Raises otherwise; returns the result with the flip mask."""
+    from d2dgs_torch.ops.cuda.raster3d import compare_blend3d, walk_cap
+    from d2dgs_torch.ops.raster3d import blend3d_plain
+    with torch.no_grad():
+        *plain, dec = blend3d_plain(*args, decisions=True)
+    res = compare_blend3d(state, work, plain, dec,
+                          torch.clamp(args[7], max=walk_cap(args[9],
+                                                            args[10])))
+    shown = {k: v for k, v in res.items() if k != "flip_mask"}
+    log(f"[{tag}] {label}: " + json.dumps(shown))
+    if not res["ok"]:
         raise AssertionError(f"K5 disagrees with blend3d_plain on {label}: "
-                             f"{err}, finite {finite}")
-    return {"max_abs_err": err, "flipped": flips,
-            "pixels": out[0].numel()}
+                             f"{shown}")
+    return res
+
+
+def check_k6(tag, label, args, state, walk, g) -> tuple:
+    """K6 on K5's ``state`` and training ``walk`` against the plain VJP on
+    the cotangent ``g``, zero at the pixels that K5's check judged flipped:
+    K5 runs again on the same inputs for its work rows (its state must come
+    out bitwise the same) and check_blend3d judges each flip first, so a
+    flip outside the band fails before its cotangent is dropped.  Returns
+    (K5's check, K6's check, K5's work rows)."""
+    from d2dgs_torch.ops.cuda.raster3d import (blend3d_bwd, blend3d_fwd,
+                                               blend3d_plain_vjp)
+    from d2dgs_torch.ops.tiled_raster import PIX
+    work = torch.empty((args[6].shape[0], 2, PIX), dtype=torch.int32,
+                       device=state[0].device)
+    with torch.no_grad():
+        again = blend3d_fwd(*args, work=work)
+    if not all(torch.equal(a, b) for a, b in zip(again, state)):
+        raise AssertionError(f"phase 8: K5 on {label} gave another state "
+                             f"than its training-mode launch")
+    fwd = check_blend3d(tag, f"K5 on {label}", args, state, work)
+    flip = fwd["flip_mask"]
+    g = [torch.where(flip if t.dim() == 2 else flip[..., None], 0.0, t)
+         for t in g]
+    kw = dict(chunk=args[9], tile_cap=args[10])
+    bwd = check_blend3d_grads(
+        tag, f"K6 on {label}", blend3d_bwd(*args[:9], state, walk, *g, **kw),
+        blend3d_plain_vjp(*args[:9], *g, **kw))
+    return fwd, bwd, work
 
 
 def check_blend3d_grads(tag, label, dk, dp) -> dict:
@@ -2164,51 +2252,120 @@ def check_blend3d_grads(tag, label, dk, dp) -> dict:
 
 def blend3d_holds(inputs, cam, cfg) -> dict:
     """K5 against blend3d_plain on the card over the whole view, and K6
-    against the plain autograd VJP with a cotangent from a seed; then
-    K5, K6 and their plain versions timed with CUDA events (K6 with its
-    outputs' zero fill), and their bounds on this view."""
-    from d2dgs_torch.ops.cuda.raster3d import (blend3d_bwd, blend3d_fwd,
-                                               blend3d_plain_vjp)
+    against the plain autograd VJP with a cotangent from a seed (check_k6);
+    one Blend3D forward and backward under
+    torch.cuda.set_sync_debug_mode("error") (no host read); each pass's
+    units and items and K6's items timed by their %globaltimer stamps,
+    over the lists K5 laid out on the card; K5 (training mode, as Blend3D
+    launches it, and serving mode), K6 and their plain versions timed with
+    CUDA events (K6 with its outputs' zero fill), and their bounds on this
+    view."""
+    from d2dgs_torch.ops.cuda.blend import forward_layout, forward_work
+    from d2dgs_torch.ops.cuda.raster3d import (SEG, UNIT, Blend3D,
+                                               blend3d_bwd, blend3d_fwd,
+                                               blend3d_plain_vjp,
+                                               walk_buffers, walk_cap)
     from d2dgs_torch.ops.raster3d import blend3d_inputs, blend3d_plain
-    from d2dgs_torch.ops.tiled_raster import PIX
     dev = inputs[0].device
     label = f"the {cam.H}x{cam.W} flow view"
     with torch.no_grad():
         _, args = blend3d_inputs(*inputs, cam, cfg=cfg)
-        nt = args[6].shape[0]
-        work = torch.empty((nt, 2, PIX), dtype=torch.int32, device=dev)
-        n_walk = torch.empty((nt, PIX), dtype=torch.int32, device=dev)
-        out = blend3d_fwd(*args, n_walk=n_walk, work=work)
-        plain = blend3d_plain(*args)
-        torch.cuda.synchronize()
-    fwd = check_blend3d("phase 8", f"K5 on {label}", out, plain)
+    nt, n_pairs = args[6].shape[0], args[5].shape[0]
+    walk = walk_buffers(nt, n_pairs, args[0].shape[0], dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        out = blend3d_fwd(*args, walk=walk, stats=stats)
+    torch.cuda.synchronize()
     gen = torch.Generator(device=dev).manual_seed(12)
     g = [torch.randn(o.shape, generator=gen, device=dev) for o in out]
+    fwd, bwd, work = check_k6("phase 8", label + ", a cotangent from a "
+                              "seed", args, out, walk, g)
+    g = [torch.where(fwd["flip_mask"] if t.dim() == 2
+                     else fwd["flip_mask"][..., None], 0.0, t) for t in g]
+    # one Blend3D forward and backward reading nothing back
+    xs = [a.clone().requires_grad_() for a in args[:5]]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grads = torch.autograd.grad(Blend3D.apply(*xs, *args[5:]), xs, g)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not all(bool(torch.isfinite(t).all()) for t in grads):
+        raise AssertionError("phase 8: Blend3D's gradients are not finite")
+    del xs, grads
+    # per-unit and per-item timers over the lists K5 laid out on the card
+    rep = {}
+    unit_ns = torch.zeros((forward_work(nt, n_pairs)[2], 2),
+                          dtype=torch.int64, device=dev)
+    item_ns = torch.zeros((walk.grid_items, 2), dtype=torch.int64,
+                          device=dev)
+    k6_ns = torch.zeros_like(item_ns)
+    k6_stats = torch.zeros(2, dtype=torch.int64, device=dev)
     kw = dict(chunk=args[9], tile_cap=args[10])
-    bwd = check_blend3d_grads(
-        "phase 8", f"K6 on {label}, a cotangent from a seed",
-        blend3d_bwd(*args[:9], out[0], n_walk, *g, **kw),
-        blend3d_plain_vjp(*args[:9], *g, **kw))
     with torch.no_grad():
-        k5_ms = cuda_ms(lambda: blend3d_fwd(*args, n_walk=n_walk), reps=20)
-        k6_ms = cuda_ms(lambda: blend3d_bwd(*args[:9], out[0], n_walk, *g,
-                                            **kw), reps=20)
+        blend3d_fwd(*args, walk=walk, unit_ns=unit_ns, item_ns=item_ns,
+                    report=rep)
+        blend3d_bwd(*args[:9], out, walk, *g, stats=k6_stats, item_ns=k6_ns,
+                    **kw)
+    torch.cuda.synchronize()
+    items, units = forward_layout(rep)
+    c = torch.clamp(args[7], max=walk_cap(args[9], args[10])).long()
+    t, sg = items.long().unbind(1)
+    unit_tile, unit_k = units.long().unbind(1)
+    fwd_walk = torch.clamp(work[:, 0].amax(dim=1).long()[t] - sg * SEG, 0,
+                           SEG)
+    tile_walk = walk.n_walk.amax(dim=1).long()
+    rep_a = item_report("phase 8", "K5 pass A", unit_ns[:units.shape[0]],
+                        unit_tile, torch.clamp(c[unit_tile] - unit_k * UNIT,
+                                               0, UNIT), c)
+    rep_b = item_report("phase 8", "K5 pass B", item_ns[:items.shape[0]], t,
+                        fwd_walk, c)
+    rep_6 = item_report("phase 8", "K6", k6_ns[:items.shape[0]], t,
+                        torch.clamp(tile_walk[t] - sg * SEG, 0, SEG), c)
+    with torch.no_grad():
+        k5_ms = cuda_ms(lambda: blend3d_fwd(*args, walk=walk), reps=20)
+        k5_serve_ms = cuda_ms(lambda: blend3d_fwd(*args), reps=20)
+        k6_ms = cuda_ms(lambda: blend3d_bwd(*args[:9], out, walk, *g, **kw),
+                        reps=20)
         plain_ms = cuda_ms(lambda: blend3d_plain(*args), reps=3)
     plain_vjp_ms = cuda_ms(lambda: blend3d_plain_vjp(*args[:9], *g, **kw),
                            reps=3)
-    b5, b6 = blend3d_bound(args, work), blend3d_bound(args, work, n_walk)
-    res = {"pairs": int(args[5].numel()), "fwd_check": fwd,
-           "bwd_check": bwd, "k5_ms": k5_ms, "k6_ms": k6_ms,
-           "k5_plain_ms": plain_ms, "k6_plain_ms": plain_vjp_ms,
-           "k5_bound": b5, "k6_bound": b6,
-           "busiest_tile_pairs": int(args[7].max())}
-    log(f"[phase 8] K5/K6 on {label} ({res['pairs']} pairs, busiest tile "
-        f"{res['busiest_tile_pairs']}): K5 {k5_ms:.4f} ms (plain "
-        f"{plain_ms:.2f}), bound {b5['bound_ms']:.4f} ms by "
-        f"{b5['bound_by']} ({b5['n_eval']:.0f} evaluations, "
-        f"{b5['n_blend']:.0f} blends); K6 {k6_ms:.4f} ms (plain VJP "
-        f"{plain_vjp_ms:.2f}), bound {b6['bound_ms']:.4f} ms by "
-        f"{b6['bound_by']} ({b6['n_eval']:.0f} re-walked pairs)")
+    b5, b6 = blend3d_bound(args, work), blend3d_bound(args, work,
+                                                      walk.n_walk)
+    tests, refused = int(stats[1]), int(stats[2])
+    res = {"pairs": n_pairs, "fwd_check": {k: v for k, v in fwd.items()
+                                           if k != "flip_mask"},
+           "bwd_check": bwd, "k5_ms": k5_ms, "k5_serve_ms": k5_serve_ms,
+           "k6_ms": k6_ms, "k5_plain_ms": plain_ms,
+           "k6_plain_ms": plain_vjp_ms, "k5_bound": b5, "k6_bound": b6,
+           "busiest_tile_pairs": int(args[7].max()),
+           "items": int(items.shape[0]), "units": int(units.shape[0]),
+           "grid_items": rep["grid_items"], "grid_units": rep["grid_units"],
+           "pass_a_evaluations": int(stats[0]),
+           "cull_tests": tests, "cull_refused": refused,
+           "cull_share": refused / max(tests, 1),
+           "k6_cull_share": int(k6_stats[1]) / max(int(k6_stats[0]), 1),
+           "busiest_item_pairs": int(torch.clamp(c[t] - sg * SEG, 0,
+                                                 SEG).max()),
+           "multi_segment_tiles": fwd["multi_segment_tiles"],
+           "scratch_bytes": rep["scratch_bytes"],
+           "pass_a": rep_a, "pass_b": rep_b, "k6_items": rep_6,
+           "sync_free": True}
+    log(f"[phase 8] K5/K6 on {label} ({n_pairs} pairs, busiest tile "
+        f"{res['busiest_tile_pairs']}, {res['multi_segment_tiles']} tiles "
+        f"of more than one segment): {res['units']} units and "
+        f"{res['items']} items; pass A {res['pass_a_evaluations']} "
+        f"evaluations, culled {refused} of {tests} (pair, warp) tests "
+        f"({res['cull_share']:.3f}); K5 {k5_ms:.4f} ms in training mode, "
+        f"{k5_serve_ms:.4f} serving (plain {plain_ms:.2f}), bound "
+        f"{b5['bound_ms']:.4f} ms by {b5['bound_by']} ({b5['n_eval']:.0f} "
+        f"evaluations, {b5['n_blend']:.0f} blends); K6 {k6_ms:.4f} ms (plain "
+        f"VJP {plain_vjp_ms:.2f}), bound {b6['bound_ms']:.4f} ms by "
+        f"{b6['bound_by']} ({b6['n_eval']:.0f} re-walked pairs), culled "
+        f"{res['k6_cull_share']:.3f}; slowest items: pass A "
+        f"{rep_a['slowest_us']:.1f} us, pass B {rep_b['slowest_us']:.1f}, K6 "
+        f"{rep_6['slowest_us']:.1f}; Blend3D forward and backward under "
+        f"sync debug mode 'error': no host read")
     return res
 
 
@@ -2342,15 +2499,15 @@ def phase_8(dev, card, res6) -> dict:
     if not diff > 0.0:
         raise AssertionError("phase 8: the flow term did not change the "
                              "deform MLP's update")
-    # K6 against the plain VJP on that step's own flow-loss cotangent
-    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_plain_vjp
+    # K5 and K6 against their plain versions on that step's own inputs and
+    # flow-loss cotangent
     a, kw = k6_call["args"], k6_call["kw"]
     if not any(bool(t.any()) for t in a[11:14]):
         raise AssertionError("phase 8: the flow term's cotangent is zero")
-    own = check_blend3d_grads(
-        "phase 8", "K6 on the flow step's view, its own flow-loss "
-        "cotangent", blend3d_bwd(*a, **kw),
-        blend3d_plain_vjp(*a[:9], *a[11:14], **kw))
+    own_fwd, own, _ = check_k6(
+        "phase 8", "the flow step's view, its own flow-loss cotangent",
+        (*a[:9], kw["chunk"], kw["tile_cap"]), a[9], a[10], a[11:14])
+    own["k5_flipped"] = own_fwd["flipped"]
     del a, k6_call
     del gauss, nodes, inputs, mlps
     torch.cuda.empty_cache()
@@ -3798,10 +3955,28 @@ def main() -> int:
         "max_abs_err": max(b5["fwd_check"]["max_abs_err"].values()),
         "max_abs_err_by_output": b5["fwd_check"]["max_abs_err"],
         "flipped_pixels": b5["fwd_check"]["flipped"],
-        "ms": b5["k5_ms"], "plain_ms": b5["k5_plain_ms"],
+        "band": {k: b5["fwd_check"][k] for k in (
+            "in_band", "outside_band", "band_max_share", "band_max_ulps",
+            "band_max_pairs", "single_segment_T_err", "counts_differ")},
+        "crop_flipped_pixels": res8["crop"]["flipped"],
+        "flow_step_flipped_pixels": res8["k6_own_check"]["k5_flipped"],
+        "ms": b5["k5_ms"], "ms_serving": b5["k5_serve_ms"],
+        "plain_ms": b5["k5_plain_ms"],
         "bound_ms": b5["k5_bound"]["bound_ms"],
         "bound_by": b5["k5_bound"]["bound_by"], "library_ms": None,
         "pairs": b5["pairs"], "busiest_tile_pairs": b5["busiest_tile_pairs"],
+        "multi_segment_tiles": b5["multi_segment_tiles"],
+        "work_items": b5["items"], "pass_a_units": b5["units"],
+        "grid_items": b5["grid_items"], "grid_units": b5["grid_units"],
+        "busiest_item_pairs": b5["busiest_item_pairs"],
+        "pass_a_evaluations": b5["pass_a_evaluations"],
+        "cull_tests": b5["cull_tests"], "cull_share": b5["cull_share"],
+        "pass_a_longest_us": b5["pass_a"]["slowest_us"],
+        "pass_b_longest_us": b5["pass_b"]["slowest_us"],
+        "pass_a_span_us": b5["pass_a"]["span_us"],
+        "pass_b_span_us": b5["pass_b"]["span_us"],
+        "scratch_bytes": b5["scratch_bytes"],
+        "sync_free": b5["sync_free"],
         "evaluations": b5["k5_bound"]["n_eval"],
         "blends": b5["k5_bound"]["n_blend"],
         "rasterize_3dgs_ms": {
@@ -3824,6 +3999,11 @@ def main() -> int:
         "ms": b5["k6_ms"], "plain_ms": b5["k6_plain_ms"],
         "bound_ms": b5["k6_bound"]["bound_ms"],
         "bound_by": b5["k6_bound"]["bound_by"], "library_ms": None,
+        "work_items": b5["items"],
+        "busiest_item_pairs": b5["busiest_item_pairs"],
+        "cull_share": b5["k6_cull_share"],
+        "longest_item_us": b5["k6_items"]["slowest_us"],
+        "items_span_us": b5["k6_items"]["span_us"],
         "rewalked": b5["k6_bound"]["n_eval"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

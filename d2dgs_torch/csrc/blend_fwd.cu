@@ -114,7 +114,11 @@
 // receive the %globaltimer stamps at the start and end of pass A's units
 // and of pass B's work items.
 
+#include <climits>
+
 #include <cuda_runtime.h>
+
+#include "work_layout.cuh"    // SEG, UNIT, Layout, fwd_layout, stamp
 
 namespace {
 
@@ -125,16 +129,12 @@ constexpr int SROW = 20;           // a staged row: NFEAT floats, 16-byte aligne
 constexpr int R_CULL = NFEAT;      // pass A's rows: the pair's cull radius
 constexpr int NSTATE = 16;
 constexpr int NREC = 2;            // training records: last, median
-constexpr int SEG = 256;           // pairs per work item (segment)
 // training checkpoints: T, dist1, dist2, colour(3), depth, normal(3),
 // distortion (state rows 0 and 2-11) at every SEG-th pair
 constexpr int NCKPT = 11;
-constexpr int UNIT = 64;           // pairs per pass-A work unit
-constexpr int UNITS = SEG / UNIT;  // units per segment
 // pass A's rows per work item, [item, NCAND, PIX]: each unit's product of
 // (1 - alpha), then SEG / 32 words of candidate-pair bits
 constexpr int NCAND = UNITS + SEG / 32;
-constexpr int LAYOUT_THREADS = 1024;
 
 // An item's partial state, rows of [slot, NPART, PIX]: rows 2-13 are the
 // segment's own (local) state rows 2-13 (dist1, dist2, colour, depth,
@@ -153,13 +153,6 @@ constexpr float NEAR_PLANE = 0.2f;
 constexpr float FAR_PLANE = 100.0f;
 constexpr float FAR_X_NEAR = 20.0f;        // FAR_PLANE * NEAR_PLANE
 constexpr float FAR_MINUS_NEAR = 99.8f;    // FAR_PLANE - NEAR_PLANE
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-__device__ __forceinline__ long long global_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
 
 // The place in the image grid of output slot `tile`: the slot itself, or
 // gtile[tile] where a launch blends a slab of tiles taken from a larger
@@ -167,10 +160,6 @@ __device__ __forceinline__ long long global_ns() {
 // `gtile_ref`).  Only the pixel coordinates read it.
 __device__ __forceinline__ int grid_tile(const int* gtile, int tile) {
   return gtile != nullptr ? gtile[tile] : tile;
-}
-
-__device__ __forceinline__ int segments_of(int count) {
-  return max(1, (count + SEG - 1) / SEG);
 }
 
 // Row policies: `base(t)` once per tile, then `row(base, i)` is the index
@@ -190,24 +179,6 @@ struct DenseRows {             // K3: the tile's own slab [tile_cap, NFEAT]
   __device__ int base(int t) const { return t * cap; }
   __device__ int count(int t) const { return counts[t]; }
   __device__ int row(int b, int i) const { return b + i; }
-};
-
-// The layout buffer of one launch, int32: item_start [T + 1] (the last
-// entry the item total), slot_start [T] (a multi-segment tile's first
-// partial slot), arrivals [T] (the combine's tickets), the unit total,
-// items [max_items, 2] (tile, segment) and units [max_units, 2] (tile,
-// unit k: pairs [k UNIT, (k + 1) UNIT)).
-struct Layout {
-  int* base;
-  int num_tiles;
-  int max_items;
-  __device__ int total() const { return base[num_tiles]; }
-  __device__ int* item_start() const { return base; }
-  __device__ int* slot_start() const { return base + num_tiles + 1; }
-  __device__ int* arrivals() const { return base + 2 * num_tiles + 1; }
-  __device__ int* unit_total() const { return base + 3 * num_tiles + 1; }
-  __device__ int* items() const { return base + 3 * num_tiles + 2; }
-  __device__ int* units() const { return items() + 2 * max_items; }
 };
 
 // The response of pair f at pixel (px, py) (_resp, forward.cu:336-402):
@@ -360,95 +331,6 @@ __device__ __forceinline__ void load_row(const float* s, float (&f)[SROW]) {
     f[4 * i + 1] = x.y;
     f[4 * i + 2] = x.z;
     f[4 * i + 3] = x.w;
-  }
-}
-
-__device__ __forceinline__ void stamp(long long* item_ns, int item,
-                                      int n_timed, long long t_start,
-                                      int tid) {
-  if (item_ns != nullptr && item < n_timed) {
-    __syncthreads();
-    if (tid == 0) {
-      item_ns[2 * item] = t_start;
-      item_ns[2 * item + 1] = global_ns();
-    }
-  }
-}
-
-// Block-wide exclusive prefix sum of v over the LAYOUT_THREADS threads.
-__device__ int block_exclusive(int v, int* s_warp) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int inc = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int x = __shfl_up_sync(FULL_MASK, inc, o);
-    if (lane >= o) inc += x;
-  }
-  if (lane == 31) s_warp[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int a0 = s_warp[lane];
-    int a = a0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int x = __shfl_up_sync(FULL_MASK, a, o);
-      if (lane >= o) a += x;
-    }
-    s_warp[lane] = a - a0;
-  }
-  __syncthreads();
-  const int res = s_warp[warp] + inc - v;
-  __syncthreads();
-  return res;
-}
-
-// One CTA: the work items of every tile, max(1, ceil(count / SEG)) each,
-// tile by tile, the partial slots of the multi-segment tiles and pass A's
-// units, ceil(count / UNIT) each, from block-wide exclusive scans; the
-// combine's tickets are zeroed.
-__global__ void __launch_bounds__(LAYOUT_THREADS)
-fwd_layout(const int* __restrict__ counts, int num_tiles, int max_units,
-           Layout lay) {
-  __shared__ int s_warp[LAYOUT_THREADS / 32];
-  const int tid = threadIdx.x;
-  const int per = (num_tiles + LAYOUT_THREADS - 1) / LAYOUT_THREADS;
-  const int t0 = min(tid * per, num_tiles);
-  const int t1 = min(t0 + per, num_tiles);
-  int n_sum = 0, m_sum = 0, u_sum = 0;
-  for (int t = t0; t < t1; ++t) {
-    const int n = segments_of(counts[t]);
-    n_sum += n;
-    m_sum += n > 1 ? n : 0;
-    u_sum += (counts[t] + UNIT - 1) / UNIT;
-  }
-  int item = block_exclusive(n_sum, s_warp);
-  int slot = block_exclusive(m_sum, s_warp);
-  int unit = block_exclusive(u_sum, s_warp);
-  int* items = lay.items();
-  int* units = lay.units();
-  for (int t = t0; t < t1; ++t) {
-    const int c = counts[t];
-    const int n = segments_of(c);
-    const int u = (c + UNIT - 1) / UNIT;
-    lay.item_start()[t] = item;
-    lay.slot_start()[t] = slot;
-    lay.arrivals()[t] = 0;
-    for (int s = 0; s < n && item + s < lay.max_items; ++s) {
-      items[2 * (item + s)] = t;
-      items[2 * (item + s) + 1] = s;
-    }
-    for (int k = 0; k < u && unit + k < max_units; ++k) {
-      units[2 * (unit + k)] = t;
-      units[2 * (unit + k) + 1] = k;
-    }
-    item += n;
-    slot += n > 1 ? n : 0;
-    unit += u;
-  }
-  if (tid == LAYOUT_THREADS - 1) {
-    lay.item_start()[num_tiles] = min(item, lay.max_items);
-    *lay.unit_total() = min(unit, max_units);
   }
 }
 
@@ -760,8 +642,9 @@ int launch(const float* feats, Rows rows, const int* counts, int num_tiles,
            int n_items_timed, cudaStream_t stream) {
   if (num_tiles <= 0 || max_items <= 0) return 0;
   const Layout lay{layout, num_tiles, max_items};
-  fwd_layout<<<1, LAYOUT_THREADS, 0, stream>>>(counts, num_tiles, max_units,
-                                               lay);
+  // the counts are clamped at tile_cap by the caller
+  fwd_layout<<<1, LAYOUT_THREADS, 0, stream>>>(counts, INT_MAX, num_tiles,
+                                               max_units, lay);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (max_units > 0) {

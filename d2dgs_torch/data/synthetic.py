@@ -37,8 +37,20 @@ def blend_test_scene(kind: str, n_packed: int = 700):
     the JAX package's blend-kernel tests); "opaque", the same at opacity
     0.999 (early termination); "packed", ``n_packed`` splats packed near
     the view centre (at 700 its busiest tile holds 626 pairs, three
-    256-pair backward segments).  Returns (means, scales, quats, opacity,
-    colours) float32 numpy arrays."""
+    256-pair backward segments); "wall", 600 splats of scale ~1 at opacity
+    0.999 around the origin, each over every tile of the 3DGS flow blend
+    (600 pairs a tile) where every pixel terminates within its first few
+    pairs.  Returns (means, scales, quats, opacity, colours) float32 numpy
+    arrays."""
+    if kind == "wall":
+        rs = np.random.RandomState(0)
+        n = 600
+        quats = rs.normal(size=(n, 4))
+        arrs = (rs.normal(size=(n, 3)) * 0.1,
+                np.exp(rs.normal(size=(n, 2)) * 0.2),
+                quats / np.linalg.norm(quats, axis=-1, keepdims=True),
+                np.full(n, 0.999), rs.uniform(size=(n, 3)))
+        return tuple(np.asarray(a, np.float32) for a in arrs)
     if kind not in ("pallas", "opaque", "packed"):
         raise ValueError(f"unknown blend test scene {kind!r}")
     n, spread, bias = (n_packed, 0.15, -1.0) if kind == "packed" else \

@@ -129,6 +129,13 @@ def forward_work(num_tiles: int, n_pairs: int,
     return items, slots, units
 
 
+def layout_len(num_tiles: int, n_items: int, n_units: int) -> int:
+    """The int32 length of a forward launch's layout buffer
+    (csrc/work_layout.cuh ``Layout``): item_start, slot_start, arrivals,
+    the unit total, and the item and unit lists."""
+    return 3 * num_tiles + 2 + 2 * (n_items + n_units)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(SOURCE)
@@ -324,7 +331,7 @@ def _fwd_launch(launcher, head, num_tiles, work, records, segments,
     n_items, n_slots, n_units = work
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
-    layout = torch.empty(3 * num_tiles + 2 + 2 * (n_items + n_units),
+    layout = torch.empty(layout_len(num_tiles, n_items, n_units),
                          dtype=torch.int32, device=dev)
     cand = torch.empty((n_items, NCAND, PIX), dtype=torch.float32,
                        device=dev)

@@ -2,8 +2,9 @@
 
 Each source in ``d2dgs_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into ``.kernel_build/<hash>/`` at the repository root, where
-the hash covers the source and the compiler flags; a later call finds
-the library there and only loads it.  Libraries are bound with ctypes.
+the hash covers the source, the headers beside it (``*.cuh``) and the
+compiler flags; a later call finds the library there and only loads it.
+Libraries are bound with ctypes.
 """
 from __future__ import annotations
 
@@ -35,8 +36,11 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library of ``csrc/<source>`` is built."""
+    """Where the library of ``csrc/<source>`` is built: a source that
+    includes a header is built anew when the header changes."""
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / (Path(source).stem + ".so")
 

@@ -146,18 +146,37 @@ def _as_surfel_prep(p: Prep3D) -> Preprocessed:
                         rect_max=p.rect_max)
 
 
-def _blend_chunk(T0, C0, D0, pix, con, cen, col, dz, op):
-    """One chunk of pairs on a set of tiles: T0 [t,P], C0 [t,P,C], D0
-    [t,P] the running state; pix [t,P,2]; per pair con [t,k,3], cen
-    [t,k,2], col [t,k,C], dz [t,k], op [t,k] (0 past a tile's list).
-    Returns the state after the chunk."""
-    d = pix[:, None, :, :] - cen[:, :, None, :]              # [t,k,P,2]
+# rows of ``blend3d_plain(decisions=True)``'s decisions [tiles, NDEC3,
+# 256]: each pixel's T before its last blended pair (NaN where it blended
+# none), its evaluated pairs (up to and with its termination) and its
+# blended pairs, as K5's ``work`` counts them
+DEC3_T, DEC3_EVAL, DEC3_BLEND = 0, 1, 2
+NDEC3 = 3
+
+
+def alpha3d(d, con, op):
+    """The alpha of pairs at pixels: d [..., k, P, 2] pixel minus centre,
+    con [..., k, 3] the conics, op [..., k] the opacities -> [..., k, P]:
+    min(ALPHA_CLIP, op exp(power)), zero where power > 0 or alpha <
+    ALPHA_CUTOFF, with power = -0.5 (a dx^2 + c dy^2) - (b dx) dy in the
+    JAX walk's order (the kernels K5/K6 compose it the same way)."""
     power = (-0.5 * (con[..., 0:1] * d[..., 0] ** 2
                      + con[..., 2:3] * d[..., 1] ** 2)
              - con[..., 1:2] * d[..., 0] * d[..., 1])
     alpha = torch.clamp_max(op[..., None] * torch.exp(power), ALPHA_CLIP)
-    alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_CUTOFF), alpha,
-                        torch.zeros_like(alpha))             # [t,k,P]
+    return torch.where((power <= 0.0) & (alpha >= ALPHA_CUTOFF), alpha,
+                       torch.zeros_like(alpha))
+
+
+def _blend_chunk(T0, C0, D0, pix, con, cen, col, dz, op, dec=None,
+                 ok=None):
+    """One chunk of pairs on a set of tiles: T0 [t,P], C0 [t,P,C], D0
+    [t,P] the running state; pix [t,P,2]; per pair con [t,k,3], cen
+    [t,k,2], col [t,k,C], dz [t,k], op [t,k] (0 past a tile's list).
+    Returns the state after the chunk and, given the tiles' decision rows
+    so far ``dec`` [t, NDEC3, P] and ``ok`` [t,k] (the pairs in the
+    tiles' lists), those rows after it (``_chunk_decisions``)."""
+    alpha = alpha3d(pix[:, None, :, :] - cen[:, :, None, :], con, op)
     # P_i = T0 * prod_{j<i} (1 - a_j), left to right as the scan rounds
     fac = torch.cat([T0[:, None, :], 1.0 - alpha], dim=1)    # [t,k+1,P]
     prod = torch.cumprod(fac, dim=1)
@@ -167,14 +186,18 @@ def _blend_chunk(T0, C0, D0, pix, con, cen, col, dz, op):
     T1 = torch.gather(prod, 1, n_live)[:, 0]
     C1 = C0 + torch.einsum("tkp,tkc->tpc", w, col)
     D1 = D0 + torch.einsum("tkp,tk->tp", w, dz)
-    return T1, C1, D1
+    if dec is None:
+        return T1, C1, D1
+    return T1, C1, D1, _chunk_decisions(dec, alpha.detach(), prod.detach(),
+                                        live, ok)
 
 
 def blend3d_plain(conic: torch.Tensor, center: torch.Tensor,
                   colors: torch.Tensor, depth: torch.Tensor,
                   opac: torch.Tensor, pair_gid: torch.Tensor,
                   tile_start: torch.Tensor, tile_count: torch.Tensor,
-                  grid_x: int, chunk: int = 64, tile_cap: int = 4096):
+                  grid_x: int, chunk: int = 64, tile_cap: int = 4096,
+                  decisions: bool = False):
     """The plain version of K5 (``csrc/raster3d.cu``): blend each tile's
     depth-ordered pairs ``pair_gid[tile_start[t]:][:tile_count[t]]`` (int32
     Gaussian ids) into its 256 pixels, ``chunk`` pairs at a time, with
@@ -190,7 +213,12 @@ def blend3d_plain(conic: torch.Tensor, center: torch.Tensor,
     reach each chunk) from the tile counts is one host synchronisation.
     Each chunk runs under ``torch.utils.checkpoint``, so the backward
     recomputes its [tiles, chunk, 256] intermediates instead of keeping
-    them."""
+    them.
+
+    ``decisions`` also returns, fourth, the rows DEC3_* [tiles, NDEC3,
+    256] of each pixel's termination test (``_chunk_decisions``), which
+    the threshold band of K5's checks reads (``compare_blend3d`` in
+    ops/cuda/raster3d.py); the three state outputs do not change."""
     dev = conic.device
     C = colors.shape[-1]
     num_tiles = tile_start.shape[0]
@@ -209,13 +237,16 @@ def blend3d_plain(conic: torch.Tensor, center: torch.Tensor,
     T_acc = torch.ones((num_tiles, P), device=dev)
     C_acc = torch.zeros((num_tiles, P, C), device=dev)
     D_acc = torch.zeros((num_tiles, P), device=dev)
+    dec = torch.zeros((num_tiles, NDEC3, P), device=dev)
+    dec[:, DEC3_T] = float("nan")
     if n_walk == 0:
         # no pair (an empty view): the state still depends on the inputs,
         # with zero gradients, as the JAX scan's and the kernels' do, so a
         # backward through it gives zeros instead of raising (adding the
         # empty sums' +0.0 leaves every value as it is)
         link = sum(x[:0].sum() for x in (conic, center, colors, depth, opac))
-        return T_acc + link, C_acc + link, D_acc + link
+        out = (T_acc + link, C_acc + link, D_acc + link)
+        return (*out, dec) if decisions else out
     arange_k = torch.arange(k, device=dev)
     for ci in range(n_walk):
         # the tiles whose lists reach this chunk; the rest are done
@@ -224,14 +255,33 @@ def blend3d_plain(conic: torch.Tensor, center: torch.Tensor,
         ok = offs < end[tiles, None]
         ids = gid[torch.clamp(offs, max=gid.shape[0] - 1)]
         op = torch.where(ok, opac[ids], 0.0)
-        T1, C1, D1 = checkpoint(
+        T1, C1, D1, *dec1 = checkpoint(
             _blend_chunk, T_acc[tiles], C_acc[tiles], D_acc[tiles],
             pix_all[tiles], conic[ids], center[ids], colors[ids],
-            depth[ids], op, use_reentrant=False)
+            depth[ids], op, *((dec[tiles], ok) if decisions else ()),
+            use_reentrant=False)
+        if decisions:
+            dec = dec.index_copy(0, tiles, dec1[0])
         T_acc = T_acc.index_copy(0, tiles, T1)
         C_acc = C_acc.index_copy(0, tiles, C1)
         D_acc = D_acc.index_copy(0, tiles, D1)
-    return T_acc, C_acc, D_acc
+    return (T_acc, C_acc, D_acc, dec) if decisions else (T_acc, C_acc, D_acc)
+
+
+def _chunk_decisions(dec, alpha, prod, live, ok):
+    """The decision rows ``dec`` [t, NDEC3, P] of a set of tiles after one
+    more chunk, from its alphas, products and live mask (``_blend_chunk``;
+    ``ok`` [t,k] marks the pairs in the tiles' lists): the T before the
+    last pair blended so far, where the chunk blends one, and the chunk's
+    evaluated and blended pairs added."""
+    blended = live & (alpha > 0.0)
+    pos = torch.arange(alpha.shape[1], device=alpha.device)[None, :, None]
+    last = torch.where(blended, pos, -1).amax(dim=1)          # [t,P]
+    t_last = torch.gather(prod, 1, last.clamp_min(0)[:, None])[:, 0]
+    n_eval = (live & ok[..., None]).sum(dim=1)
+    return torch.stack([torch.where(last >= 0, t_last, dec[:, DEC3_T]),
+                        dec[:, DEC3_EVAL] + n_eval,
+                        dec[:, DEC3_BLEND] + blended.sum(dim=1)], dim=1)
 
 
 def blend3d_inputs(means3d, scales, quats, opacities, colors, cam: Camera,

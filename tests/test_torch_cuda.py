@@ -479,10 +479,15 @@ def _flow_blend_args(cam, means, scales, quats, opac, colors, cfg):
 
 
 def _flow_scene(kind, dev):
-    """A 48x64 check scene (``blend_test_scene``), or a full-width random
-    one: 800x800, 30,000 Gaussians of the phase-3 camera's scale."""
+    """A 48x64 check scene (``blend_test_scene``: "pallas", "opaque";
+    "packed", whose busiest tiles hold 633 and 655 pairs, three 256-pair
+    segments; "wall", whose 12 tiles hold 600 pairs each and where every
+    pixel terminates in its first segment), or a full-width random one:
+    800x800, 30,000 Gaussians of the phase-3 camera's scale."""
     if kind != "full":
-        return _scene(kind == "opaque", dev, packed=kind == "packed")
+        cam = orbit_camera(0.4, 0.3, 3.0, fov=0.8, H=48, W=64, device=dev)
+        return cam, [torch.as_tensor(a, device=dev)
+                     for a in blend_test_scene(kind)]
     g = torch.Generator().manual_seed(11)
     n = 30_000
     arrs = [torch.randn(n, 3, generator=g) * 0.6,
@@ -495,37 +500,70 @@ def _flow_scene(kind, dev):
     return cam, [a.to(dev) for a in arrs]
 
 
+def _judge_k5(args, state, work):
+    """K5's state and work rows against blend3d_plain's on the same CUDA
+    inputs, judged by compare_blend3d: T bitwise on every tile of one
+    256-pair segment, every flip of one pair within the threshold band,
+    every other pixel within 2e-5 (T, colours) and 2e-4 (depth) with the
+    same evaluated and blended pair counts.  Returns its result."""
+    from d2dgs_torch.ops.cuda.raster3d import compare_blend3d, walk_cap
+    from d2dgs_torch.ops.raster3d import blend3d_plain
+    *plain, dec = blend3d_plain(*args, decisions=True)
+    res = compare_blend3d(state, work, plain, dec,
+                          torch.clamp(args[7], max=walk_cap(args[9],
+                                                            args[10])))
+    assert res["ok"], {k: v for k, v in res.items() if k != "flip_mask"}
+    return res
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("tile_cap, chunk", [(4096, 64), (100, 32)],
                          ids=["cap4096", "cap100"])
-@pytest.mark.parametrize("kind", ["pallas", "opaque", "packed", "full"])
+@pytest.mark.parametrize("kind", ["pallas", "opaque", "packed", "wall",
+                                  "full"])
 def test_blend3d_kernels_match_plain_on_gpu(cuda, kind, tile_cap, chunk):
-    """K5 against blend3d_plain on the same CUDA inputs (T and the colour
-    sums to 2e-5, the depth sum to 2e-4: the flow path's image, alpha and
-    depth tolerances), and K6 (Blend3D's backward) against the autograd
-    VJP through blend3d_plain, with a cotangent from a seed, each input's
-    gradient max-normalised to GRAD; one launch of each."""
+    """K5 against blend3d_plain on the same CUDA inputs (``_judge_k5``) in
+    serving mode and, bitwise the same state, in training mode (Blend3D's
+    forward); K6 (Blend3D's backward) against the autograd VJP through
+    blend3d_plain on a cotangent from a seed, zero at the pixels K5's
+    check judged flipped, each input's gradient max-normalised to GRAD;
+    one launch of each wrapper per call.  tile_cap 100 at chunk 32 walks
+    96 pairs of a tile."""
+    from d2dgs_torch.config import T_CUTOFF
     from d2dgs_torch.ops.cuda.raster3d import (Blend3D, blend3d_bwd,
                                                blend3d_fwd,
                                                blend3d_plain_vjp)
-    from d2dgs_torch.ops.raster3d import blend3d_plain
     cam, arrs = _flow_scene(kind, cuda)
     args = _flow_blend_args(cam, *arrs, RasterConfig(tile_cap=tile_cap,
                                                      chunk=chunk))
     assert int(args[7].sum()) > 0
-    xs = [a.clone().requires_grad_() for a in args[:5]]
+    nt = args[6].shape[0]
+    work = torch.empty((nt, 2, 256), dtype=torch.int32, device=cuda)
     before = (blend3d_fwd.launches, blend3d_bwd.launches)
-    out = Blend3D.apply(*xs, *args[5:])
-    plain = blend3d_plain(*args)
+    served = blend3d_fwd(*args, work=work)
     torch.cuda.synchronize()
-    for k, p, tol in zip(out, plain, (2e-5, 2e-5, 2e-4)):
-        torch.testing.assert_close(k.detach(), p, rtol=0, atol=tol)
-    g = [torch.randn(o.shape, generator=torch.Generator().manual_seed(5))
-         .to(cuda) for o in out]
+    assert blend3d_fwd.launches == before[0] + 1
+    res = _judge_k5(args, served, work)
+    if kind == "packed" and tile_cap == 4096:
+        assert int(args[7].max()) > 512 and res["multi_segment_tiles"] >= 2
+    if kind == "wall":               # every pixel ends in its first segment
+        assert res["multi_segment_tiles"] == (nt if tile_cap == 4096 else 0)
+        assert bool((served[0] <= T_CUTOFF).all())
+        assert int(work[:, 0].max()) <= 256
+    xs = [a.clone().requires_grad_() for a in args[:5]]
+    out = Blend3D.apply(*xs, *args[5:])
+    torch.cuda.synchronize()
+    assert blend3d_fwd.launches == before[0] + 2
+    for a, b in zip(out, served):
+        assert torch.equal(a.detach(), b)
+    gen = torch.Generator().manual_seed(5)
+    g = [torch.randn(o.shape, generator=gen).to(cuda) for o in out]
+    flip = res["flip_mask"]
+    g = [torch.where(flip if t.dim() == 2 else flip[..., None], 0.0, t)
+         for t in g]
     d_kernel = torch.autograd.grad(out, xs, g)
     torch.cuda.synchronize()
-    assert (blend3d_fwd.launches, blend3d_bwd.launches) == (before[0] + 1,
-                                                            before[1] + 1)
+    assert blend3d_bwd.launches == before[1] + 1
     d_plain = blend3d_plain_vjp(*args[:9], *g, chunk=chunk,
                                 tile_cap=tile_cap)
     for a, b in zip(d_kernel, d_plain):
@@ -557,8 +595,10 @@ def test_blend3d_kernels_on_an_empty_view(cuda):
 @pytest.mark.cuda
 def test_blend3d_wrappers_refuse_bad_inputs_on_gpu(cuda):
     """K5's and K6's wrappers raise on a CPU tensor among CUDA ones, a
-    wrong dtype and a colour count the kernels are not built for."""
-    from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_fwd
+    wrong dtype, a colour count the kernels are not built for and a walk
+    laid out for another pair count."""
+    from d2dgs_torch.ops.cuda.raster3d import (blend3d_bwd, blend3d_fwd,
+                                               walk_buffers)
     cam, arrs = _scene(False, cuda)
     args = list(_flow_blend_args(cam, *arrs, RasterConfig()))
     with pytest.raises(ValueError, match="expected cuda"):
@@ -570,6 +610,12 @@ def test_blend3d_wrappers_refuse_bad_inputs_on_gpu(cuda):
         blend3d_fwd(*args[:2], four, *args[3:])
     nt = args[6].shape[0]
     T = torch.ones(nt, 256, device=cuda)
-    walk = torch.zeros(nt, 256, dtype=torch.int32, device=cuda)
+    state = (T, torch.zeros(nt, 256, 3, device=cuda), T)
+    walk = walk_buffers(nt, args[5].shape[0], args[0].shape[0], cuda)
     with pytest.raises(ValueError, match="gC has shape"):
-        blend3d_bwd(*args[:9], T, walk, T, T, T)
+        blend3d_bwd(*args[:9], state, walk, T, T, T)
+    with pytest.raises(ValueError, match="walk was laid out"):
+        blend3d_bwd(*args[:9], state,
+                    walk_buffers(nt, args[5].shape[0] + 256,
+                                 args[0].shape[0], cuda), T,
+                    state[1], T)
