@@ -1,0 +1,3 @@
+"""Live surfels rendered over the rows the deformation field
+evaluated, in the traced training steps (%): render.live / field.rows."""
+from benchlib.spans import field_live_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""The deformation field's stream time per served view (ms): the
+d2dgs.field span's, from its entry event to its exit event."""
+from benchlib.spans import field_ms as read  # noqa: F401

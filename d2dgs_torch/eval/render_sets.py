@@ -12,6 +12,7 @@ import os
 import numpy as np
 import torch
 
+from .. import trace
 from ..models.deform import DeformConfig, deform_gaussians
 from ..render.renderer import render
 from .metrics import evaluate_image_metrics
@@ -29,12 +30,13 @@ def _save_png(path, img):
 def render_view(cam, gauss, nodes, deform_cfg, raster_cfg, bg,
                 depth_filtering: bool = False):
     """The node warp at the camera's time, then the render."""
-    d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                         feature=gauss.feature,
-                         motion_mask=gauss.motion_mask)
-    return render(cam, gauss, bg, d_xyz=d["d_xyz"],
-                  d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
-                  depth_filtering=depth_filtering, cfg=raster_cfg)
+    with trace.span("d2dgs.view"):
+        d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
+                             feature=gauss.feature,
+                             motion_mask=gauss.motion_mask)
+        return render(cam, gauss, bg, d_xyz=d["d_xyz"],
+                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
+                      depth_filtering=depth_filtering, cfg=raster_cfg)
 
 
 def render_test_set(samples, gauss, nodes, node_cfg, raster_cfg,

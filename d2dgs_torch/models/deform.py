@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..utils.general import resolve_device
 from .deform_mlp import MLPConfig, init_mlp, mlp_forward
 from .hash_deform import HashConfig, hash_deform_forward, init_hash_deform
@@ -93,5 +94,7 @@ def deform_gaussians(nodes: NodeParams, cfg: DeformConfig,
     field's parameters (DeformModel.step); "static" reads no parameters,
     so ``nodes`` may be None."""
     params = nodes.mlp if cfg.deform_type in ("mlp", "hash") else nodes
-    return apply_deform_field(params, cfg, xyz, t, feature=feature,
-                              motion_mask=motion_mask, step=step)
+    with trace.span("d2dgs.field"):
+        trace.count("field.rows", xyz.shape[0])
+        return apply_deform_field(params, cfg, xyz, t, feature=feature,
+                                  motion_mask=motion_mask, step=step)

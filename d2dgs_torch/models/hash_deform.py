@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..utils.general import resolve_device
 from .deform_mlp import embed_dim, mlp_from_arrays, positional_encoding
 
@@ -100,6 +101,7 @@ def band_mask(cfg: HashConfig, step, device) -> torch.Tensor:
     j = torch.arange(cfg.enc_dim, dtype=torch.float32, device=device)
     start_idx = cfg.start_level * cfg.n_features
     band_len = cfg.enc_dim - start_idx
+    trace.count("host.reads", 1)  # a copy from host memory
     ratio = (torch.as_tensor(step, dtype=torch.float32, device=device)
              / max(cfg.n_masking_step, 1))
     ramp = torch.clamp(ratio * band_len - (j - start_idx), 0.0, 1.0)
@@ -115,6 +117,7 @@ def hash_encode(tables, cfg: HashConfig, x01: torch.Tensor,
     weight falls on corner ``res - 1``."""
     d = cfg.in_dim
     n = x01.shape[0]
+    trace.count("host.reads", 1)  # a copy from host memory
     corners = torch.tensor(
         np.stack(np.meshgrid(*([[0, 1]] * d), indexing="ij"),
                  axis=-1).reshape(-1, d), device=x01.device)   # [2^d, d]

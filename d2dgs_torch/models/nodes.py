@@ -20,6 +20,7 @@ import dataclasses
 import torch
 from torch import nn
 
+from .. import trace
 from ..ops.knn import knn
 from ..utils.dual_quaternion import dq_blend, quat_apply
 from ..utils.general import farthest_point_sample, resolve_device
@@ -156,6 +157,7 @@ def cal_nn_weight(params: NodeParams, cfg: NodeConfig, x: torch.Tensor,
         for _ in range(K):
             i = torch.argmin(d2_sel, dim=1)
             idxs.append(i)
+            trace.count("host.reads", 1)  # the value's copy from the host
             d2_sel[rows, i] = float("inf")
         idx = torch.stack(idxs, dim=-1)                       # [N,K]
     # differentiable distances recomputed only at the K selected nodes
@@ -217,6 +219,7 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
         cols.append(attrs["d_opacity"])
     if cfg.mlp.pred_color and attrs["d_color"] is not None:
         cols.append(attrs["d_color"])
+    trace.count("host.reads", 1)  # a copy from host memory
     bias = torch.tensor(ROT_BIAS, device=x.device)
     use_dqb = cfg.mlp.local_frame and cfg.skinning == "dqb"
     if cfg.mlp.local_frame and not use_dqb:

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.knn import knn
 from .nodes import NodeConfig, NodeParams, cal_nn_weight, node_deform
 
@@ -62,6 +63,7 @@ def time_draws(generator: torch.Generator | None,
 def _jittered_time(u_t, t, delta_t, like: torch.Tensor):
     """The term's time: ``u_t``, or ``t`` jittered by delta_t (u_t - 0.5);
     on the device and in the type of ``like``."""
+    trace.count("host.reads", 1)  # the draw's copy from host memory
     u_t = u_t.to(like)
     if t is None:
         return u_t
@@ -115,6 +117,7 @@ def _estimate_rotation_sampled(source, target, nn_idx_s, weight_s,
     S = torch.einsum("mka,mk,mkb->mab", E0, weight_s, E1)
     unchanged = torch.all(E0 == E1, dim=2).all(dim=1)
     S = torch.where(unchanged[:, None, None], 0.0, S)
+    trace.count("host.reads", 2)  # linalg.svd reads back twice
     U, sig, Vh = torch.linalg.svd(S)
     V = Vh.transpose(-1, -2)
     R = V @ U.transpose(-1, -2)
@@ -243,6 +246,7 @@ def arap_graph(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
     m = params.nodes.shape[0]
     dev = params.nodes.device
     t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
+    trace.count("host.reads", 1)  # the draws' copy from host memory
     t_samp = draws.u_samp.to(params.nodes) * delta_t + t \
         - 0.5 * delta_t
     tt = t_samp[None, :, None].expand(m, t_samp_num, 1)
@@ -259,6 +263,7 @@ def arap_graph(params: NodeParams, cfg: NodeConfig, draws: ArapDraws,
     if m > sample_num:
         # live nodes without replacement (deform_utils.py:189-190 uses
         # randperm): Gumbel top-k restricted to alive slots
+        trace.count("host.reads", 1)  # the keys' copy from host memory
         g = draws.gumbel.to(dev, torch.float32) + torch.where(
             params.alive, 0.0, float("-inf"))
         sample_idx = torch.topk(g, sample_num).indices
@@ -273,6 +278,7 @@ def elastic_loss(params: NodeParams, cfg: NodeConfig, draws: TimeDraws,
     same ``t_samp_num``."""
     m = params.nodes.shape[0]
     t = _jittered_time(draws.u_t, t, delta_t, params.nodes)
+    trace.count("host.reads", 1)  # the draws' copy from host memory
     t_samp = draws.u_samp.to(params.nodes) * delta_t + t \
         - 0.5 * delta_t
     tt = t_samp[None, :, None].expand(m, t_samp_num, 1)

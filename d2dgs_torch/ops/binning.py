@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..config import TILE, RasterConfig
 from .projection import Preprocessed
 
@@ -153,6 +154,7 @@ def emission_slots(area: torch.Tensor):
     offsets, total int).  The buffer is exactly ``total`` long."""
     area = area.to(torch.int64)
     offs = torch.cumsum(area, 0) - area
+    trace.count("host.reads", 2)  # the repeats' check, then their total
     g = torch.repeat_interleave(
         torch.arange(area.shape[0], device=area.device), area)
     return g, offs, g.shape[0]
@@ -220,6 +222,7 @@ def bin_gaussians(prep: Preprocessed, grid_x: int, grid_y: int,
     # gives the one order (the CUDA key is tile<<32 | depth bits)
     rank_bits = max((n - 1).bit_length(), 1)
     key = ((ty * grid_x + tx) << rank_bits) + g
+    trace.count("host.reads", 1)  # the kept count sizes key[keep]
     skey = torch.sort(key[keep]).values
     sorted_tile = skey >> rank_bits
     pair_rank = (skey & ((1 << rank_bits) - 1)).to(torch.int32)

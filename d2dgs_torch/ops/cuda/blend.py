@@ -26,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import trace
 from ...config import (ALPHA_CLIP, ALPHA_CUTOFF, FAR_PLANE,
                        FILTER_INV_SQUARE, NEAR_PLANE, T_CUTOFF)
 from .. import blend as B
@@ -92,7 +93,10 @@ def segment_layout(counts: torch.Tensor, seg: int = SEG) -> Segments:
     c = counts.long()
     n_ck = torch.clamp_min((c + seg - 1) // seg - 1, 0)
     ends = torch.cumsum(n_ck, 0)
-    n_bound = int(ends[-1]) if c.numel() else 0
+    n_bound = 0
+    if c.numel():
+        trace.count("host.reads", 1)
+        n_bound = int(ends[-1])
     n_items = c.numel() + n_bound
     off = ends - n_ck
     tiles = torch.arange(c.numel(), device=dev)

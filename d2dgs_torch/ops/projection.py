@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..config import FILTER_SIZE, NEAR_PLANE, TILE, TRUNCATED_R
 from ..data.cameras import Camera
 from ..utils.quaternion import quat_to_rotmat
@@ -74,6 +75,7 @@ def preprocess(means3d: torch.Tensor, scales: torch.Tensor,
     Tu, Tv, Tw = T[:, 0, :], T[:, 1, :], T[:, 2, :]
 
     # AABB from T (forward.cu:133-163)
+    trace.count("host.reads", 1)  # a copy from host memory
     f_sign = torch.tensor([1.0, 1.0, -1.0], dtype=T.dtype, device=T.device)
     d = torch.sum(f_sign * Tw * Tw, dim=-1)
     nondegenerate = d != 0.0

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import trace
 from ..config import RasterConfig
 from ..data.cameras import Camera
 from ..models.gaussians import GaussianParams, apply_deform
@@ -54,6 +55,7 @@ def depth_to_normal(cam: Camera, depth: torch.Tensor):
     (utils/point_utils.py:9-41). depth: [H,W]. Returns ([H,W,3], points)."""
     H, W = cam.H, cam.W
     dev = depth.device
+    trace.count("host.reads", 1)  # linalg.inv reads its error code back
     c2w = torch.linalg.inv(cam.w2c)
     ys, xs = torch.meshgrid(torch.arange(H, device=dev),
                             torch.arange(W, device=dev), indexing="ij")
@@ -115,42 +117,50 @@ def render(cam: Camera, params: GaussianParams, bg: torch.Tensor,
     H, W = cam.H, cam.W
     gx, gy = tile_grid(H, W)
 
-    means3d, scales, quats, opacity, sh = apply_deform(
-        params, d_xyz, d_rotation, d_scaling, d_opacity, d_color)
+    with trace.span("d2dgs.project"):
+        if trace.enabled():
+            trace.count("render.live", params.alive.sum())
+        means3d, scales, quats, opacity, sh = apply_deform(
+            params, d_xyz, d_rotation, d_scaling, d_opacity, d_color)
 
-    if override_color is not None:
-        colors = override_color
-    else:
-        dirs = means3d - cam.cam_center[None, :]
-        dirs = dirs / torch.sqrt(
-            torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-20)
-        colors = sh_to_rgb(params.active_sh_degree, sh, dirs)
+        if override_color is not None:
+            colors = override_color
+        else:
+            dirs = means3d - cam.cam_center[None, :]
+            dirs = dirs / torch.sqrt(
+                torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-20)
+            colors = sh_to_rgb(params.active_sh_degree, sh, dirs)
 
-    prep = preprocess(means3d, scales, quats, cam, scaling_modifier)
-    # dead capacity slots are culled outright (not merely transparent)
-    valid = prep.valid & params.alive
-    prep = prep._replace(valid=valid,
-                         radius=torch.where(valid, prep.radius, 0))
-    Tmat = prep.T
-    if screen_probe is not None:
-        # NDC gradient hack (see module docstring)
-        probe = torch.zeros_like(Tmat)
-        probe[:, 0, 2] = screen_probe[:, 0] * (Tmat[:, 2, 2] * (W / 2.0)).detach()
-        probe[:, 1, 2] = screen_probe[:, 1] * (Tmat[:, 2, 2] * (H / 2.0)).detach()
-        Tmat = Tmat + probe
+        prep = preprocess(means3d, scales, quats, cam, scaling_modifier)
+        # dead capacity slots are culled outright (not merely transparent)
+        valid = prep.valid & params.alive
+        prep = prep._replace(valid=valid,
+                             radius=torch.where(valid, prep.radius, 0))
+        Tmat = prep.T
+        if screen_probe is not None:
+            # NDC gradient hack (see module docstring)
+            probe = torch.zeros_like(Tmat)
+            probe[:, 0, 2] = screen_probe[:, 0] * (
+                Tmat[:, 2, 2] * (W / 2.0)).detach()
+            probe[:, 1, 2] = screen_probe[:, 1] * (
+                Tmat[:, 2, 2] * (H / 2.0)).detach()
+            Tmat = Tmat + probe
+        opac = torch.where(prep.valid, opacity, 0.0)
 
-    opac = torch.where(prep.valid, opacity, 0.0)
-    binning = bin_gaussians(prep, gx, gy, cfg, opacity=opac)
-    tile_color, tile_allmap, overflow = blend_tiles(
-        Tmat, prep.center, prep.normal, colors, opac, binning, gx, gy, cfg)
-    Tfinal = 1.0 - tile_allmap[..., 1:2]
-    tile_color = tile_color + Tfinal * bg
-    image = tiles_to_image(tile_color, gx, gy, H, W)
-    allmap = tiles_to_image(tile_allmap, gx, gy, H, W)
+    with trace.span("d2dgs.bin"):
+        binning = bin_gaussians(prep, gx, gy, cfg, opacity=opac)
+    with trace.span("d2dgs.blend"):
+        tile_color, tile_allmap, overflow = blend_tiles(
+            Tmat, prep.center, prep.normal, colors, opac, binning, gx, gy,
+            cfg)
+        Tfinal = 1.0 - tile_allmap[..., 1:2]
+        tile_color = tile_color + Tfinal * bg
+        image = tiles_to_image(tile_color, gx, gy, H, W)
+        allmap = tiles_to_image(tile_allmap, gx, gy, H, W)
 
-    (alpha, rend_normal, rend_dist, surf_depth,
-     surf_normal) = postprocess_maps(cam, image, allmap, bg,
-                                     depth_filtering, cfg)
+        (alpha, rend_normal, rend_dist, surf_depth,
+         surf_normal) = postprocess_maps(cam, image, allmap, bg,
+                                         depth_filtering, cfg)
 
     return RenderOutput(
         image=image, alpha=alpha, rend_normal=rend_normal,

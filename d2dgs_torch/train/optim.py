@@ -15,6 +15,8 @@ from typing import Mapping, NamedTuple
 
 import torch
 
+from .. import trace
+
 
 class AdamState(NamedTuple):
     mu: dict      # first moments, name -> tensor like the parameter
@@ -41,6 +43,7 @@ def adam_update(grads: Mapping[str, torch.Tensor | None], state: AdamState,
     Updates ``params`` and the moments in place; returns the new state."""
     count = state.count + 1
     t = count.to(torch.float32)
+    trace.count("host.reads", 2)  # two copies from host memory
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
                                       device=t.device), t)
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,

@@ -20,12 +20,12 @@ import copy
 import dataclasses
 import math
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..data.cameras import Camera
 from ..models import densify as D
 from ..models import regularizers as R
@@ -217,13 +217,15 @@ def photometric_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
                  d_opacity=gate(d["d_opacity"]),
                  d_color=gate(d["d_color"]),
                  screen_probe=probe, cfg=cfg.raster)
-    ll1 = l1(out.image, gt)
-    loss = ((1.0 - cfg.lambda_dssim) * ll1
-            + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
-    # normal consistency + distortion (train_gui.py:292-299)
-    normal_err = 1.0 - torch.sum(out.rend_normal * out.surf_normal, dim=-1)
-    loss = loss + sched["lambda_normal"] * torch.mean(normal_err)
-    loss = loss + sched["lambda_dist"] * torch.mean(out.rend_dist)
+    with trace.span("d2dgs.loss"):
+        ll1 = l1(out.image, gt)
+        loss = ((1.0 - cfg.lambda_dssim) * ll1
+                + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
+        # normal consistency + distortion (train_gui.py:292-299)
+        normal_err = 1.0 - torch.sum(out.rend_normal * out.surf_normal,
+                                     dim=-1)
+        loss = loss + sched["lambda_normal"] * torch.mean(normal_err)
+        loss = loss + sched["lambda_dist"] * torch.mean(out.rend_dist)
     return loss, (out, ll1)
 
 
@@ -264,14 +266,17 @@ def _grads_and_adam(loss, groups, probe, opts, lrs):
     inputs = [p for g in groups for p in g.values()] + [probe]
     # a view where nothing is drawn leaves the loss a constant of the
     # background on the plain path: every gradient is zero, as in JAX
-    grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
-             if loss.requires_grad else [None] * len(inputs))
-    new, i = [], 0
-    for g, opt, lr in zip(groups, opts, lrs):
-        new.append(adam_update(dict(zip(g, grads[i:i + len(g)])), opt, g,
-                               lr))
-        i += len(g)
-    g_probe = grads[-1] if grads[-1] is not None else torch.zeros_like(probe)
+    with trace.span("d2dgs.backward"):
+        grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
+                 if loss.requires_grad else [None] * len(inputs))
+    with trace.span("d2dgs.adam"):
+        new, i = [], 0
+        for g, opt, lr in zip(groups, opts, lrs):
+            new.append(adam_update(dict(zip(g, grads[i:i + len(g)])), opt,
+                                   g, lr))
+            i += len(g)
+        g_probe = (grads[-1] if grads[-1] is not None
+                   else torch.zeros_like(probe))
     return new, g_probe
 
 
@@ -306,39 +311,44 @@ def node_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
         acc_draws = R.time_draws(gen)
 
     t = cam.time.reshape(1, 1).expand(ng.capacity, 1)
-    d_xyz = mlp_forward(nodes.mlp, cfg.node_cfg.mlp, ng.xyz.detach(), t,
-                        step=sched.get("step", 10**9))["d_xyz"]
-    d_xyz = d_xyz * ng.motion_mask
+    with trace.span("d2dgs.field"):
+        trace.count("field.rows", ng.capacity)
+        d_xyz = mlp_forward(nodes.mlp, cfg.node_cfg.mlp, ng.xyz.detach(), t,
+                            step=sched.get("step", 10**9))["d_xyz"]
+        d_xyz = d_xyz * ng.motion_mask
     # before node_warm_up the warp is detached (train_gui.py:482-483)
     w = sched["warm"]
     d_xyz = d_xyz.detach() * w + d_xyz * (1.0 - w)
     out = render(cam, ng, bg, d_xyz=d_xyz, screen_probe=probe,
                  cfg=cfg.raster)
-    ll1 = l1(out.image, gt)
-    loss = ((1.0 - cfg.lambda_dssim) * ll1
-            + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
+    with trace.span("d2dgs.loss"):
+        ll1 = l1(out.image, gt)
+        loss = ((1.0 - cfg.lambda_dssim) * ll1
+                + cfg.lambda_dssim * (1.0 - ssim(out.image, gt)))
     if motion_loss:
         # stage-1 motion-mask loss, weight 1 (train_gui.py:509-515)
         loss = loss + sched["reg_on"] * motion_mask_loss(
             ng, cam, gt_alpha, bg, cfg, d={"d_xyz": d_xyz})
-    reg = (cfg.lambda_elastic * R.elastic_loss(
-               nodes, cfg.node_cfg, elastic_draws, t=cam.time,
-               delta_t=sched["time_interval"])
-           + cfg.lambda_acc * R.acc_loss(
-               nodes, cfg.node_cfg, acc_draws, t=cam.time,
-               delta_t=3.0 * sched["time_interval"]))
-    if not cfg.no_arap_loss:
-        reg = reg + cfg.lambda_node_arap * R.arap_loss(
-            nodes, cfg.node_cfg, arap_draws)
-    loss = loss + sched["reg_on"] * reg
+    with trace.span("d2dgs.loss"):
+        reg = (cfg.lambda_elastic * R.elastic_loss(
+                   nodes, cfg.node_cfg, elastic_draws, t=cam.time,
+                   delta_t=sched["time_interval"])
+               + cfg.lambda_acc * R.acc_loss(
+                   nodes, cfg.node_cfg, acc_draws, t=cam.time,
+                   delta_t=3.0 * sched["time_interval"]))
+        if not cfg.no_arap_loss:
+            reg = reg + cfg.lambda_node_arap * R.arap_loss(
+                nodes, cfg.node_cfg, arap_draws)
+        loss = loss + sched["reg_on"] * reg
 
     (ngauss_opt, mlp_opt, node_opt), g_probe = _grads_and_adam(
         loss, groups, probe, (state.ngauss_opt, state.mlp_opt,
                               state.node_opt),
         (gauss_lr_tree(cfg, sched["xyz_lr"]), sched["deform_lr"],
          cfg.deform_lr_init))
-    stats = D.add_stats(state.ngauss_stats, g_probe, out.visibility,
-                        out.radii.to(torch.float32))
+    with trace.span("d2dgs.adam"):
+        stats = D.add_stats(state.ngauss_stats, g_probe, out.visibility,
+                            out.radii.to(torch.float32))
     metrics = dict(loss=ll1.detach(), psnr=psnr(out.image.detach(), gt),
                    num_pairs=out.num_pairs, overflow=out.overflow)
     return state._replace(ngauss_opt=ngauss_opt, mlp_opt=mlp_opt,
@@ -369,11 +379,12 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
     # deform ARAP reg (time_utils.py:1228-1232), gated by the warm-up;
     # node-graph-specific: other deform types have no node graph
     if cfg.deform_type == "node":
-        if arap_draws is None:
-            arap_draws = R.arap_draws(state.generator,
-                                      state.nodes.nodes.shape[0])
-        loss = loss + (1.0 - sched["warm"]) * sched["lambda_arap"] * \
-            R.arap_loss(state.nodes, cfg.node_cfg, arap_draws)
+        with trace.span("d2dgs.loss"):
+            if arap_draws is None:
+                arap_draws = R.arap_draws(state.generator,
+                                          state.nodes.nodes.shape[0])
+            loss = loss + (1.0 - sched["warm"]) * sched["lambda_arap"] * \
+                R.arap_loss(state.nodes, cfg.node_cfg, arap_draws)
     if motion_loss:
         # motion-mask loss (train_gui.py:363-370), landmark-scheduled; its
         # render takes the deformation detached, so it is built without a
@@ -397,8 +408,9 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                               state.node_opt),
         (gauss_lr_tree(cfg, sched["xyz_lr"]), sched["deform_lr"],
          cfg.deform_lr_init))
-    stats = D.add_stats(state.gauss_stats, g_probe, out.visibility,
-                        out.radii.to(torch.float32))
+    with trace.span("d2dgs.adam"):
+        stats = D.add_stats(state.gauss_stats, g_probe, out.visibility,
+                            out.radii.to(torch.float32))
     metrics = dict(loss=ll1.detach(), psnr=psnr(out.image.detach(), gt),
                    num_pairs=out.num_pairs, overflow=out.overflow,
                    alive=alive)
@@ -690,20 +702,22 @@ class Trainer:
         self._stack = list(s["stack"])
 
     def _pick_camera(self):
-        if not self._stack:
-            self._refill_stack()
-        i = self._stack.pop(self.rng.randint(len(self._stack)))
-        cam, img = self.cameras[i], self.images[i]
-        if not self.cfg.is_blender:
-            # time noise on the deformation query (train_gui.py:278)
-            noise = (self.rng.randn() * self.time_interval
-                     * self.smooth_term(self.iteration))
-            cam = dataclasses.replace(
-                cam, time=cam.time + torch.tensor(noise, dtype=torch.float32,
-                                                  device=cam.device))
-        alpha = None if self.alphas is None else self.alphas[i]
-        self._last_cam_idx = i
-        return cam, img, alpha
+        with trace.span("d2dgs.pick"):
+            if not self._stack:
+                self._refill_stack()
+            i = self._stack.pop(self.rng.randint(len(self._stack)))
+            cam, img = self.cameras[i], self.images[i]
+            if not self.cfg.is_blender:
+                # time noise on the deformation query (train_gui.py:278)
+                noise = (self.rng.randn() * self.time_interval
+                         * self.smooth_term(self.iteration))
+                trace.count("host.reads", 1)  # a copy from host memory
+                cam = dataclasses.replace(
+                    cam, time=cam.time + torch.tensor(
+                        noise, dtype=torch.float32, device=cam.device))
+            alpha = None if self.alphas is None else self.alphas[i]
+            self._last_cam_idx = i
+            return cam, img, alpha
 
     def _pick_flow_sample(self, cam_idx: int):
         """A random RAFT flow candidate of the picked camera, loaded, with
@@ -874,39 +888,30 @@ class Trainer:
         due = self._main_maintenance(it)
         if not due:
             return
-        if self._mesh is not None:
-            from ..parallel import shard_gauss_state
-            self.state = self.full_state()
-        for what in due:
-            if what == "node_densify":
-                self.state, _ = node_densify_step(
-                    self.state, cfg, cfg.densify_grad_threshold)
-            elif what == "densify":
-                self.state, _ = densify_step(
-                    self.state, cfg, "main", self.extent, 0.01,
-                    it > cfg.opacity_reset_interval,
-                    cfg.densify_grad_threshold)
-            else:
-                self.state = reset_opacity_step(self.state, "main")
-        if self._mesh is not None:
-            self.state = shard_gauss_state(self._mesh, self.state)
+        with trace.span("d2dgs.maintain"):
+            if self._mesh is not None:
+                from ..parallel import shard_gauss_state
+                self.state = self.full_state()
+            for what in due:
+                if what == "node_densify":
+                    self.state, _ = node_densify_step(
+                        self.state, cfg, cfg.densify_grad_threshold)
+                elif what == "densify":
+                    self.state, _ = densify_step(
+                        self.state, cfg, "main", self.extent, 0.01,
+                        it > cfg.opacity_reset_interval,
+                        cfg.densify_grad_threshold)
+                else:
+                    self.state = reset_opacity_step(self.state, "main")
+            if self._mesh is not None:
+                self.state = shard_gauss_state(self._mesh, self.state)
 
     def step(self):
-        self._poll_viewer()
-        t0 = time.perf_counter()
-        if self.iteration_node < self.cfg.iterations_node_rendering:
-            m = self.node_stage_iteration()
-        else:
-            m = self.main_iteration()
-        # inter-step wall time (train_gui.py:175-176,231,374); no device
-        # synchronisation
-        now = time.perf_counter()
-        if m:
-            prev = getattr(self, "_last_step_t", None)
-            m["iter_time_ms"] = ((now - prev) * 1e3 if prev is not None
-                                 else (now - t0) * 1e3)
-        self._last_step_t = now
-        return m
+        with trace.span("d2dgs.step"):
+            self._poll_viewer()
+            if self.iteration_node < self.cfg.iterations_node_rendering:
+                return self.node_stage_iteration()
+            return self.main_iteration()
 
     def total_iterations(self) -> int:
         """Steps the full schedule takes (node stage only for "node")."""

@@ -16,12 +16,11 @@ import torch
 
 from d2dgs_tpu.data.cameras import orbit_camera as jorbit
 from d2dgs_tpu.train import trainer as jtrainer
-from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.synthetic import make_video_dataset
 from d2dgs_torch.train import trainer as ttrainer
-from d2dgs_torch.train.config import TrainConfig
 from test_torch_train import CFG, JCFG, T, _jax_state
 from test_torch_trainer import CFG_D, JCFG_D, _port
+from torch_tiny import TINY
 
 # One intra-op thread: the test suite runs its files in parallel worker
 # processes, whose OpenMP threads would contend with one another and make
@@ -260,19 +259,6 @@ def test_trainer_schedule_matches_jax(monkeypatch, is_blender):
                      "oneup_sh"}
     resets = [e for e in tlog if e[0] == "reset_opacity_step"]
     assert len(resets) >= 2
-
-
-# the tiny configuration of tests/test_trainer.py (widths, caps and the
-# ratios of its stage-1 schedule), its stage 1 cut to a third of the steps
-TINY = TrainConfig(
-    sh_degree=1, hyper_dim=2, node_num=16, gaussian_capacity=512,
-    node_gauss_capacity=256, warm_up=30,
-    node_warm_up=40, iterations_node_sampling=90,
-    iterations_node_rendering=110, iterations=400,
-    densification_interval=25, densify_from_iter=20,
-    opacity_reset_interval=10_000, normal_dist_from_iter=150,
-    oneup_sh_degree_step=100, node_force_densify_prune_step=1_000,
-    raster=RasterConfig(tile_cap=256, chunk=64, use_workqueue=False))
 
 
 def test_trainer_trains_on_cpu():

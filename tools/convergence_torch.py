@@ -187,8 +187,7 @@ def train(tr, progress: dict, run_dir: str = RUN_DIR,
         if m and tick % 100 == 0:
             p, alive = float(m["psnr"]), int(m.get("alive", 0))
             progress["trajectory"].append(
-                {"iter": tick, "psnr": round(p, 3), "alive": alive,
-                 "iter_time_ms": round(m.get("iter_time_ms", 0), 2)})
+                {"iter": tick, "psnr": round(p, 3), "alive": alive})
             log(f"[{tick}/{total}] psnr={p:.2f} alive={alive} "
                 f"pairs={int(m.get('num_pairs', 0))} "
                 f"of={int(m.get('overflow', 0))} "
