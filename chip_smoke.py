@@ -3,12 +3,13 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
-  1. require CUDA, print the card's name and power limit, build the three
+  1. require CUDA, print the card's name and power limit, build the four
      CUDA sources from d2dgs_torch/csrc with nvcc and the native mesh
      library from native/mesh_post.cpp with g++ (one compiler per source,
-     started together) and bind the kernels' six entry points (K1 and K3
+     started together) and bind the kernels' seven entry points (K1 and K3
      in blend_fwd.cu, K2 and K4 in blend_bwd.cu, K5 and K6 in
-     raster3d.cu);
+     raster3d.cu, G2, the node warp's gather backward, in
+     node_gather.cu);
   2. hold the forward kernel (K1: a first pass of one CTA per 64 pairs of
      a tile, then one CTA per 256-pair segment) in serving and in training
      mode against its plain PyTorch version on the card: a 48x64 scene of
@@ -29,7 +30,7 @@ Phases (each one fails the run with a non-zero exit):
      800x800 requests at t = 0, 0.25, 0.5, 0.75, each a node warp plus a
      render; checks finite outputs, coverage and one kernel launch per
      request, then times the kernel, its plain version and each render
-     with CUDA events;
+     with CUDA events; a request launches no G2;
   4. the training path at full width: the same scene with Adam state and
      densify statistics, trained for 10 main-stage steps at 800x800 and
      t = 0.5 towards the scene's own render, from a copy whose colours and
@@ -37,7 +38,8 @@ Phases (each one fails the run with a non-zero exit):
      JAX trainer's LRs at iterations 8011-8020, after 10 steps at
      iterations 8001-8010 on the unperturbed scene have warmed the Adam
      moments (its parameters then put back); checks finite loss, moments
-     and parameters, one K1 and one K2 launch per counted step, the
+     and parameters, one K1 and one K2 launch and two G2 launches (the
+     node warp's two gathers) per counted step, the
      densify counts and a falling L1, holds estimate_rotation on the
      card (torch.linalg.svd there, as in every step's ARAP term) against
      numpy's float64 SVD on four ARAP graphs of the trained nodes, each
@@ -48,6 +50,12 @@ Phases (each one fails the run with a non-zero exit):
      lengths, each K2 work item's and each K1 pass's unit or item
      %globaltimer duration (the longest, the span), the counts, K1's
      first-pass evaluations, its scratch bytes and the checkpoint bytes;
+  4b. hold G2 at node-train's shapes (200,000 x 3 rows into [1024, 13]
+     and [1024, 18], the 116,748 dead rows piled on three nodes with a
+     zero gradient) within 1e-6 of its plain version and of a float64
+     sum, bitwise on a second call, and time it beside its bound, the
+     plain version and aten's indexing backward
+     (tools/node_gather_time.py);
   5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
      against their plain versions on the three 48x64 scenes and on the
      full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
@@ -1076,13 +1084,15 @@ def plain_dense_vjp_all_tiles_ms(gdata, counts, gx, g, chunk,
 
 
 def kernel_wrappers() -> tuple:
-    """The wrapper of each kernel, K1-K6, in that order."""
+    """The wrapper of each kernel, K1-K6, then G2 (the node warp's gather
+    backward), in that order."""
     from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd)
+    from d2dgs_torch.ops.cuda.node_gather import gather_bwd
     from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_fwd
     return (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd,
-            blend3d_fwd, blend3d_bwd)
+            blend3d_fwd, blend3d_bwd, gather_bwd)
 
 
 def launch_counts() -> dict:
@@ -1093,6 +1103,34 @@ def launch_counts() -> dict:
 def reset_counts():
     for f in kernel_wrappers():
         f.launches = 0
+
+
+# G2 launches in a node step: the backward of cal_nn_weight's and warp's
+# gathers; a view launches none (its forward is aten's indexing)
+NODE_GATHERS = 2
+# G2 against the plain version (index_add_ in float64, rounded once),
+# relative to the gradient's norm, as tests/test_torch_cuda.py holds it
+NODE_GATHER_REL = 1e-6
+
+
+def node_gather_check(dev, card) -> dict:
+    """G2 at node-train's shapes (tools/node_gather_time.py, imported as a
+    module): within NODE_GATHER_REL of its plain version and of a float64
+    sum, the same bits on a second call, and its time beside its bound,
+    the plain version and aten's indexing backward."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import node_gather_time
+    res = node_gather_time.measure(dev)
+    for r in res:
+        if max(r["rel_err_plain"], r["rel_err_float64"]) > NODE_GATHER_REL \
+                or not r["bitwise_repeat"]:
+            raise AssertionError(f"G2 at {r['table']}: {r}")
+        log(f"[phase 4b] G2 at {r['rows']} rows into {r['table']}: plan "
+            f"{r['plan']}, error {r['rel_err_plain']:.3e} (plain) "
+            f"{r['rel_err_float64']:.3e} (float64), bitwise repeat, "
+            f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, aten {r['library_ms']:.3f} ms ({card})")
+    return {"by_width": res}
 
 
 def phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card) -> dict:
@@ -1325,7 +1363,8 @@ def phase_5b(dev, card) -> dict:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
-        delta = {k: v - before[k] for k, v in launch_counts().items()}
+        delta = {k: v - before[k] for k, v in launch_counts().items()
+                 if k.startswith("blend")}
         want = 1 if m else 0
         if delta != {"blend_fwd": 0, "blend_bwd": 0,
                      "blend_dense_fwd": want, "blend_dense_bwd": want,
@@ -3464,10 +3503,12 @@ def main() -> int:
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
     from d2dgs_torch.ops.cuda import blend as blend_lib
+    from d2dgs_torch.ops.cuda import node_gather as node_gather_lib
     from d2dgs_torch.ops.cuda import raster3d as raster3d_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
                                             segment_layout)
+    from d2dgs_torch.ops.cuda.node_gather import gather_bwd
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
     from d2dgs_torch.ops.tiled_raster import (PIX, blend_tiles_plain,
@@ -3483,10 +3524,11 @@ def main() -> int:
     log(f"[phase 1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.time()
-    with ThreadPoolExecutor(4) as pool:      # one compiler per source
+    with ThreadPoolExecutor(5) as pool:      # one compiler per source
         native_lib = pool.submit(native.build)
         built = list(pool.map(build.build, (SOURCE, SOURCE_BWD,
-                                            raster3d_lib.SOURCE)))
+                                            raster3d_lib.SOURCE,
+                                            node_gather_lib.SOURCE)))
         native_lib = native_lib.result()
     for lib, report in built:
         log(f"[phase 1] built {lib.relative_to(ROOT)}")
@@ -3495,15 +3537,17 @@ def main() -> int:
                 log(f"[phase 1] ptxas: {line.strip()}")
     if not native.available():
         raise AssertionError("the native mesh library did not load")
-    log(f"[phase 1] the three CUDA sources and the native mesh library "
+    log(f"[phase 1] the four CUDA sources and the native mesh library "
         f"({native_lib.relative_to(ROOT)}, g++ from native/mesh_post.cpp) "
         f"built in {time.time() - t0:.1f} s")
     blend_lib._lib()        # binds K1's and K3's entry points, or raises
     blend_lib._lib_bwd()    # K2's and K4's
     raster3d_lib._lib()     # K5's and K6's
+    node_gather_lib._lib()  # G2's
     log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
         "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4), "
-        "raster3d_fwd_launch and raster3d_bwd_launch (K5, K6)")
+        "raster3d_fwd_launch and raster3d_bwd_launch (K5, K6), "
+        "node_gather_bwd_launch (G2)")
     cfg = RasterConfig()
 
     # ---- phase 2 and 2b: kernels vs plain on small scenes ----
@@ -3613,7 +3657,8 @@ def main() -> int:
                                      f"{blend_fwd.launches}, expected {i + 1}")
             outs.append(out)
         serve_launches = launch_counts()
-        if serve_launches["blend_bwd"] or serve_launches["blend_dense_fwd"]:
+        if serve_launches["blend_bwd"] or serve_launches["blend_dense_fwd"] \
+                or serve_launches["gather_bwd"]:
             raise AssertionError(f"serving launched {serve_launches}")
         for t, out in zip(times, outs):
             if out.image.shape != (800, 800, 3) or \
@@ -3679,7 +3724,8 @@ def main() -> int:
     reset_counts()
     l1s, step_ms = [], []
     for i, sched in enumerate(scheds):
-        before = (blend_fwd.launches, blend_bwd.launches)
+        before = (blend_fwd.launches, blend_bwd.launches,
+                  gather_bwd.launches)
         denom = state.gauss_stats.denom.clone()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3694,6 +3740,10 @@ def main() -> int:
                                  f"{blend_fwd.launches - before[0]}, K2 "
                                  f"{blend_bwd.launches - before[1]}; "
                                  f"expected one each")
+        if gather_bwd.launches != before[2] + NODE_GATHERS:
+            raise AssertionError(f"step {i}: G2 launches "
+                                 f"{gather_bwd.launches - before[2]}, "
+                                 f"expected {NODE_GATHERS}")
         check_trained(state, metrics, i)
         seen = state.gauss_stats.denom - denom
         if not bool(((seen == 0) | (seen == 1)).all()) or \
@@ -3780,6 +3830,9 @@ def main() -> int:
         f"{k2_items['items']} work items, longest "
         f"{k2_items['slowest_us']:.1f} us; checkpoints "
         f"{seg_t.ckpt.numel() * 4} B (not in the bound)")
+
+    # ---- phase 4b: G2 against its plain version at node-train's shapes ----
+    res_g = node_gather_check(dev, card)
 
     # ---- phase 5a: K3 and K4 against their plain versions, and timed ----
     res5a = phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card)
@@ -4004,7 +4057,23 @@ def main() -> int:
         "cull_share": b5["k6_cull_share"],
         "longest_item_us": b5["k6_items"]["slowest_us"],
         "items_span_us": b5["k6_items"]["span_us"],
-        "rewalked": b5["k6_bound"]["n_eval"]}]}))
+        "rewalked": b5["k6_bound"]["n_eval"]}, {
+        "name": "gather_bwd", "route": "cuda",
+        "source": "d2dgs_torch/csrc/node_gather.cu",
+        "replaces": None,
+        "launches": sum(c["gather_bwd"] for c in paths.values()),
+        "launches_by_path": by_path("gather_bwd"),
+        "launches_per_node_step": NODE_GATHERS,
+        "tables": [r["table"] for r in res_g["by_width"]],
+        "max_rel_err": max(max(r["rel_err_plain"], r["rel_err_float64"])
+                           for r in res_g["by_width"]),
+        "bitwise_repeat": all(r["bitwise_repeat"]
+                              for r in res_g["by_width"]),
+        "ms": [r["ms"] for r in res_g["by_width"]],
+        "plain_ms": [r["plain_ms"] for r in res_g["by_width"]],
+        "bound_ms": [r["bound_ms"] for r in res_g["by_width"]],
+        "bound_by": "bytes",
+        "library_ms": [r["library_ms"] for r in res_g["by_width"]]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from .. import trace
+from ..ops.cuda.node_gather import gather_rows
 from ..ops.knn import knn
 from ..utils.dual_quaternion import dq_blend, quat_apply
 from ..utils.general import farthest_point_sample, resolve_device
@@ -164,7 +165,7 @@ def cal_nn_weight(params: NodeParams, cfg: NodeConfig, x: torch.Tensor,
     d_dim = ref.shape[-1]
     pack = torch.cat([ref, torch.exp(params.node_radius)[:, None],
                       params.node_weight], dim=-1)          # [M, D+2]
-    pk = pack[idx]                                          # [N,K,D+2]
+    pk = gather_rows(pack, idx)                             # [N,K,D+2]
     diff = q[:, None, :] - pk[..., :d_dim]
     nn_dist = torch.sum(diff * diff, dim=-1)                # [N,K]
     r = pk[..., d_dim]
@@ -234,7 +235,8 @@ def warp(params: NodeParams, cfg: NodeConfig, x: torch.Tensor, t,
     # TPU layout choice): blended[n] = sum_k w[n,k] * cols[idx[n,k]]
     widths = [c.shape[-1] for c in cols]
     table = torch.cat(cols, dim=-1)                          # [M, sum(C)]
-    blended = torch.sum(nn_weight[..., None] * table[nn_idx], dim=1)
+    blended = torch.sum(nn_weight[..., None] * gather_rows(table, nn_idx),
+                        dim=1)
     parts = torch.split(blended, widths, dim=-1)
 
     if use_dqb:

@@ -28,7 +28,10 @@ step) or ``d2dgs.view`` (a served view); ``d2dgs.pick``,
 The counters: ``field.rows`` (rows the deformation field evaluated),
 ``render.live`` (live surfels rendered), ``host.reads`` (places where
 the host waited on a CUDA device: a value read back, or a copy from
-pageable host memory, which waits for the stream).
+pageable host memory, which waits for the stream), ``field.gather_rows``
+and ``field.scatter_rows`` (rows the node warp's K-neighbour gathers
+gathered, and those whose gradient their backward accumulated, not all
+zero; ``ops/cuda/node_gather.py``).
 """
 from __future__ import annotations
 

@@ -619,3 +619,141 @@ def test_blend3d_wrappers_refuse_bad_inputs_on_gpu(cuda):
                     walk_buffers(nt, args[5].shape[0] + 256,
                                  args[0].shape[0], cuda), T,
                     state[1], T)
+
+
+# ----------------------------------------------------------------------
+# the node warp's gather (csrc/node_gather.cu)
+# ----------------------------------------------------------------------
+
+def _node_case(dev, m, c, n=200_000, k=3, live=83_252, dead_grad=False,
+               seed=0):
+    """node-train's shapes: n capacity rows, each bound to k of m nodes;
+    the rows past ``live`` are dead: all bound to nodes 0..k-1, with a zero
+    gradient as in a training step (``dead_grad``: a nonzero one)."""
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn((m, c), generator=gen)
+    idx = torch.randint(0, m, (n, k), generator=gen)
+    idx[live:] = torch.arange(k)
+    g = torch.randn((n, k, c), generator=gen)
+    if not dead_grad:
+        g[live:] = 0.0
+    return table.to(dev), idx.to(dev), g.to(dev)
+
+
+def _rel_err(got, ref):
+    """|got - ref| over |ref| (2-norms), in float64."""
+    ref = ref.double()
+    return float(torch.linalg.vector_norm(got.double() - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+def _sum64(idx, g, m):
+    return torch.zeros((m, g.shape[-1]), dtype=torch.float64,
+                       device=g.device).index_add_(
+        0, idx.reshape(-1), g.reshape(-1, g.shape[-1]).double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dead_grad", [False, True], ids=["step", "pile"])
+@pytest.mark.parametrize("c", [13, 18])
+def test_node_gather_matches_plain_and_aten_on_gpu(cuda, c, dead_grad):
+    """At node-train's shapes (200,000 x 3 rows into [1024, 13] and
+    [1024, 18], 116,748 dead rows piled on three nodes): the forward
+    bitwise aten's indexing; the backward (one launch of the kernels)
+    within 1e-6 of the float64 sum,
+    of the plain path and, where the pile's gradient is zero as in a step,
+    of aten's indexing backward (whose serial float32 runs drift by ~1e-5
+    over a pile of nonzero rows)."""
+    from d2dgs_torch.ops.cuda.node_gather import (gather_bwd, gather_rows,
+                                                  scatter_rows_plain)
+    table, idx, g = _node_case(cuda, 1024, c, dead_grad=dead_grad)
+    before = gather_bwd.launches
+    t = table.clone().requires_grad_()
+    out = gather_rows(t, idx)
+    assert torch.equal(out, table[idx])
+    grad, = torch.autograd.grad(out, t, g)
+    torch.cuda.synchronize()
+    assert gather_bwd.launches == before + 1
+    assert _rel_err(grad, _sum64(idx, g, 1024)) <= 1e-6
+    assert _rel_err(grad, scatter_rows_plain(g, idx, 1024)) <= 1e-6
+    if not dead_grad:
+        a = table.clone().requires_grad_()
+        aten, = torch.autograd.grad(a[idx], a, g)
+        assert _rel_err(grad, aten) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_node_gather_backward_is_bitwise_reproducible(cuda):
+    """Two backward calls on the same inputs give the same bits, and count
+    the same rows: those whose gradient is not all zero."""
+    from d2dgs_torch.ops.cuda.node_gather import gather_bwd
+    _, idx, g = _node_case(cuda, 1024, 18, dead_grad=True)
+    g[::7] = 0.0
+    counts = [torch.zeros(1, dtype=torch.int64, device=cuda)
+              for _ in range(2)]
+    a = gather_bwd(g, idx, 1024, counts[0])
+    b = gather_bwd(g, idx, 1024, counts[1])
+    assert torch.equal(a, b)
+    nonzero = int(torch.any(g != 0, dim=-1).sum())
+    assert int(counts[0]) == int(counts[1]) == nonzero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, c, chunks", [(1024, 18, 1), (40_000, 3, 3)],
+                         ids=["shared", "columns"])
+def test_node_gather_routes_on_gpu(cuda, m, c, chunks):
+    """The tile in shared memory whole, and split by columns across
+    blockIdx.y where [m, c] does not fit a block.  Each against the float64
+    sum, bitwise on a second call, and the count of accumulated rows."""
+    from d2dgs_torch.ops.cuda.node_gather import bwd_plan, gather_bwd
+    _, idx, g = _node_case(cuda, m, c, n=60_000, live=40_000,
+                           dead_grad=True, seed=1)
+    idx[:20_000] = torch.randint(0, m, (20_000, 3), device=cuda)
+    g[30_000:35_000] = 0.0
+    with torch.cuda.device(cuda):
+        assert bwd_plan(idx.numel(), m, c)[1] == chunks
+    count = torch.zeros(1, dtype=torch.int64, device=cuda)
+    grad = gather_bwd(g, idx, m, count)
+    assert _rel_err(grad, _sum64(idx, g, m)) <= 1e-6
+    assert int(count) == int(torch.any(g != 0, dim=-1).sum())
+    assert torch.equal(grad, gather_bwd(g, idx, m))
+
+
+@pytest.mark.cuda
+def test_node_gather_refuses_bad_inputs_on_gpu(cuda):
+    """Other dtypes and devices, and a node count whose one column does
+    not fit a block's shared memory, raise before any launch."""
+    from d2dgs_torch.ops.cuda.node_gather import gather_bwd, gather_rows
+    table, idx, g = _node_case(cuda, 64, 13, n=1000, live=900)
+    with pytest.raises(TypeError, match="table"):
+        gather_rows(table.double(), idx)
+    with pytest.raises(TypeError, match="idx"):
+        gather_rows(table, idx.int())
+    with pytest.raises(ValueError, match="expected cuda"):
+        gather_rows(table, idx.cpu())
+    with pytest.raises(ValueError, match="expected cpu"):
+        gather_rows(table.cpu(), idx)
+    before = gather_bwd.launches
+    with pytest.raises(ValueError, match="70000 nodes"):
+        gather_bwd(g[..., :1].contiguous(), idx, 70_000)
+    assert gather_bwd.launches == before
+
+
+@pytest.mark.cuda
+def test_node_gather_backward_drops_out_of_range_on_gpu(cuda):
+    """An entry whose index lies outside [0, M) adds nothing and reads and
+    writes nothing outside the tile: the result and the count are those of
+    the in-range entries alone, on both routes."""
+    from d2dgs_torch.ops.cuda.node_gather import gather_bwd
+    for m, c in ((64, 13), (40_000, 3)):
+        _, idx, g = _node_case(cuda, m, c, n=20_000, live=15_000,
+                               dead_grad=True, seed=2)
+        bad = idx.clone()
+        bad[::5, 0] = m
+        bad[1::5, 1] = -1
+        keep = (bad >= 0) & (bad < m)
+        count = torch.zeros(1, dtype=torch.int64, device=cuda)
+        grad = gather_bwd(g, bad, m, count)
+        ref = _sum64(bad[keep][:, None], g[keep][:, None], m)
+        assert _rel_err(grad, ref) <= 1e-6
+        assert int(count) == int(keep.sum())
