@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..utils.general import resolve_device
 
 
@@ -155,39 +156,49 @@ def mlp_forward(params: nn.ModuleDict, cfg: MLPConfig, x: torch.Tensor,
 
     Returns dict with d_xyz [...,3], d_rotation [...,4], d_scaling [...,2]
     and optional d_opacity/d_color/local_rotation.
+
+    The encodings, trunk and heads are the ``d2dgs.mlp`` span; under a
+    profiler ``field.mlp_ops`` counts the forward's operations from the
+    shapes: each weight matrix is applied once per row, so 2 * rows *
+    the sum of fan_in * fan_out.
     """
-    if cfg.progressive_band_time:
-        t_emb = progressive_band_encoding(t, cfg.t_multires, step,
-                                          cfg.freq_masking_steps)
-    else:
-        t_emb = positional_encoding(t, cfg.t_multires)
-    if cfg.is_blender:
-        tn = params["timenet"]
-        h_t = torch.relu(t_emb @ tn["w0"] + tn["b0"])
-        t_emb = h_t @ tn["w1"] + tn["b1"]
-    x_emb = positional_encoding(x, cfg.multires_x)
-    inp = torch.cat([x_emb, t_emb], dim=-1)
+    with trace.span("d2dgs.mlp"):
+        if trace.enabled():
+            trace.count("field.mlp_ops", 2 * math.prod(x.shape[:-1]) * sum(
+                w.shape[0] * w.shape[1] for w in params.parameters()
+                if w.dim() == 2))
+        if cfg.progressive_band_time:
+            t_emb = progressive_band_encoding(t, cfg.t_multires, step,
+                                              cfg.freq_masking_steps)
+        else:
+            t_emb = positional_encoding(t, cfg.t_multires)
+        if cfg.is_blender:
+            tn = params["timenet"]
+            h_t = torch.relu(t_emb @ tn["w0"] + tn["b0"])
+            t_emb = h_t @ tn["w1"] + tn["b1"]
+        x_emb = positional_encoding(x, cfg.multires_x)
+        inp = torch.cat([x_emb, t_emb], dim=-1)
 
-    h = inp
-    depth = len(params["layers"])
-    for i, layer in enumerate(params["layers"]):
-        h = torch.relu(h @ layer["w"] + layer["b"])
-        # the concat feeds the NEXT layer; when the skip index is the
-        # final layer (tiny test depths) it has no consumer
-        if i == cfg.skip and i + 1 < depth:
-            h = torch.cat([inp, h], dim=-1)
+        h = inp
+        depth = len(params["layers"])
+        for i, layer in enumerate(params["layers"]):
+            h = torch.relu(h @ layer["w"] + layer["b"])
+            # the concat feeds the NEXT layer; when the skip index is the
+            # final layer (tiny test depths) it has no consumer
+            if i == cfg.skip and i + 1 < depth:
+                h = torch.cat([inp, h], dim=-1)
 
-    def apply(name):
-        hd = params[name]
-        return h @ hd["w"] + hd["b"]
+        def apply(name):
+            hd = params[name]
+            return h @ hd["w"] + hd["b"]
 
-    d_scaling = apply("scaling")
-    if cfg.max_d_scale > 0:
-        d_scaling = torch.tanh(d_scaling) * float(np.log(cfg.max_d_scale))
-    out = {"d_xyz": apply("warp"), "d_rotation": apply("rotation"),
-           "d_scaling": d_scaling, "hidden": h,
-           "d_opacity": apply("opacity") if cfg.pred_opacity else None,
-           "d_color": apply("color") if cfg.pred_color else None}
-    if cfg.local_frame:
-        out["local_rotation"] = apply("local_rotation")
-    return out
+        d_scaling = apply("scaling")
+        if cfg.max_d_scale > 0:
+            d_scaling = torch.tanh(d_scaling) * float(np.log(cfg.max_d_scale))
+        out = {"d_xyz": apply("warp"), "d_rotation": apply("rotation"),
+               "d_scaling": d_scaling, "hidden": h,
+               "d_opacity": apply("opacity") if cfg.pred_opacity else None,
+               "d_color": apply("color") if cfg.pred_color else None}
+        if cfg.local_frame:
+            out["local_rotation"] = apply("local_rotation")
+        return out

@@ -24,14 +24,19 @@ profiler's own chrome trace is the export.
 The spans of the port, from the root down: ``d2dgs.step`` (a training
 step) or ``d2dgs.view`` (a served view); ``d2dgs.pick``,
 ``d2dgs.field``, ``d2dgs.project``, ``d2dgs.bin``, ``d2dgs.blend``,
-``d2dgs.loss``, ``d2dgs.backward``, ``d2dgs.adam``, ``d2dgs.maintain``.
+``d2dgs.loss``, ``d2dgs.backward``, ``d2dgs.adam``, ``d2dgs.maintain``;
+below them ``d2dgs.mlp`` (the deform MLP's encodings, trunk and heads,
+``models/deform_mlp.py`` ``mlp_forward``: inside ``d2dgs.field``, and
+inside ``d2dgs.loss`` where the node ARAP term queries it).
 The counters: ``field.rows`` (rows the deformation field evaluated),
 ``render.live`` (live surfels rendered), ``host.reads`` (places where
 the host waited on a CUDA device: a value read back, or a copy from
 pageable host memory, which waits for the stream), ``field.gather_rows``
 and ``field.scatter_rows`` (rows the node warp's K-neighbour gathers
 gathered, and those whose gradient their backward accumulated, not all
-zero; ``ops/cuda/node_gather.py``).
+zero; ``ops/cuda/node_gather.py``), ``field.mlp_ops`` (the deform MLP
+forward's float operations, 2 * rows * the sum of fan_in * fan_out over
+its products, counted from the shapes).
 """
 from __future__ import annotations
 

@@ -115,7 +115,15 @@ def test_span_tree_of_a_step_and_a_view():
         assert all(r.unit == recs[i].unit for r in kids)
         assert all(recs[i].start_ns <= r.start_ns <= r.end_ns
                    <= recs[i].end_ns for r in kids)
-    assert len(recs) == len(roots) + 2 * len(STEP) + len(VIEW)
+    # the node MLP at the nodes, the spans' only grandchildren: one
+    # d2dgs.mlp inside each d2dgs.field, and one inside a step's ARAP
+    # term (d2dgs.loss), which queries it again
+    mlps = [r for r in recs if r.name == "d2dgs.mlp"]
+    assert [recs[r.parent].name for r in mlps] == [
+        "d2dgs.field", "d2dgs.loss", "d2dgs.field", "d2dgs.loss",
+        "d2dgs.field"]
+    assert all(r.unit == recs[r.parent].unit for r in mlps)
+    assert len(recs) == len(roots) + 2 * len(STEP) + len(VIEW) + len(mlps)
     rep = trace.report()
     assert rep["units"] == 3
     for name, s in rep["spans"].items():
