@@ -3,13 +3,13 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (each one fails the run with a non-zero exit):
-  1. require CUDA, print the card's name and power limit, build the four
+  1. require CUDA, print the card's name and power limit, build the five
      CUDA sources from d2dgs_torch/csrc with nvcc and the native mesh
      library from native/mesh_post.cpp with g++ (one compiler per source,
-     started together) and bind the kernels' seven entry points (K1 and K3
+     started together) and bind the kernels' eight entry points (K1 and K3
      in blend_fwd.cu, K2 and K4 in blend_bwd.cu, K5 and K6 in
      raster3d.cu, G2, the node warp's gather backward, in
-     node_gather.cu);
+     node_gather.cu, A1, Adam's update of a parameter group, in adam.cu);
   2. hold the forward kernel (K1: a first pass of one CTA per 64 pairs of
      a tile, then one CTA per 256-pair segment) in serving and in training
      mode against its plain PyTorch version on the card: a 48x64 scene of
@@ -30,7 +30,7 @@ Phases (each one fails the run with a non-zero exit):
      800x800 requests at t = 0, 0.25, 0.5, 0.75, each a node warp plus a
      render; checks finite outputs, coverage and one kernel launch per
      request, then times the kernel, its plain version and each render
-     with CUDA events; a request launches no G2;
+     with CUDA events; a request launches no G2 and no A1;
   4. the training path at full width: the same scene with Adam state and
      densify statistics, trained for 10 main-stage steps at 800x800 and
      t = 0.5 towards the scene's own render, from a copy whose colours and
@@ -38,8 +38,9 @@ Phases (each one fails the run with a non-zero exit):
      JAX trainer's LRs at iterations 8011-8020, after 10 steps at
      iterations 8001-8010 on the unperturbed scene have warmed the Adam
      moments (its parameters then put back); checks finite loss, moments
-     and parameters, one K1 and one K2 launch and two G2 launches (the
-     node warp's two gathers) per counted step, the
+     and parameters, one K1 and one K2 launch, two G2 launches (the
+     node warp's two gathers) and one A1 launch a parameter group (three)
+     per counted step, the
      densify counts and a falling L1, holds estimate_rotation on the
      card (torch.linalg.svd there, as in every step's ARAP term) against
      numpy's float64 SVD on four ARAP graphs of the trained nodes, each
@@ -56,6 +57,12 @@ Phases (each one fails the run with a non-zero exit):
      sum, bitwise on a second call, and time it beside its bound, the
      plain version and aten's indexing backward
      (tools/node_gather_time.py);
+  4c. hold A1 on the three groups at node-train's, hash-train's and
+     mlp-train's shapes (200,000 slots; the node field, the hash field's
+     twelve 2^19 x 2 tables, or the 8x256 MLP field): one step bitwise
+     the plain version's, one launch a group, and time it beside its
+     bound, the plain version and torch.optim.Adam's fused step
+     (tools/adam_time.py);
   5a. hold the dense route's kernels, K3 (forward) and K4 (backward),
      against their plain versions on the three 48x64 scenes and on the
      full-width t=0.5 view, as phases 2 and 2b hold K1 and K2; run that
@@ -1085,14 +1092,16 @@ def plain_dense_vjp_all_tiles_ms(gdata, counts, gx, g, chunk,
 
 def kernel_wrappers() -> tuple:
     """The wrapper of each kernel, K1-K6, then G2 (the node warp's gather
-    backward), in that order."""
+    backward) and A1 (Adam's update of a parameter group), in that
+    order."""
+    from d2dgs_torch.ops.cuda.adam import adam_step
     from d2dgs_torch.ops.cuda.blend import blend_bwd, blend_fwd
     from d2dgs_torch.ops.cuda.blend_dense import (blend_dense_bwd,
                                                   blend_dense_fwd)
     from d2dgs_torch.ops.cuda.node_gather import gather_bwd
     from d2dgs_torch.ops.cuda.raster3d import blend3d_bwd, blend3d_fwd
     return (blend_fwd, blend_bwd, blend_dense_fwd, blend_dense_bwd,
-            blend3d_fwd, blend3d_bwd, gather_bwd)
+            blend3d_fwd, blend3d_bwd, gather_bwd, adam_step)
 
 
 def launch_counts() -> dict:
@@ -1111,6 +1120,31 @@ NODE_GATHERS = 2
 # G2 against the plain version (index_add_ in float64, rounded once),
 # relative to the gradient's norm, as tests/test_torch_cuda.py holds it
 NODE_GATHER_REL = 1e-6
+
+
+# A1 launches in a main-stage step: one a parameter group (the Gaussians,
+# the deform field, the nodes), each of fewer than MAX_LEAVES leaves
+ADAM_GROUPS = 3
+
+
+def adam_check(dev, card) -> dict:
+    """A1 on the three groups at node-train's, hash-train's and
+    mlp-train's shapes (tools/adam_time.py, imported as a module): one step bitwise the
+    plain version's, ADAM_GROUPS launches, and its time beside its bound,
+    the plain version and torch.optim.Adam's fused step."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import adam_time
+    res = adam_time.measure(dev)
+    for r in res:
+        if not r["bitwise_plain"] or r["launches_per_step"] != ADAM_GROUPS:
+            raise AssertionError(f"A1 on the {r['field']} field: {r}")
+        log(f"[phase 4c] A1 on the {r['field']} field's groups ({r['leaves']}"
+            f" leaves, {r['elements']} elements): bitwise the plain "
+            f"version, {r['launches_per_step']} launches, {r['ms']:.4f} ms "
+            f"(host {r['host_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.3f} ms (host {r['plain_host_ms']:.3f} "
+            f"ms), torch.optim.Adam fused {r['library_ms']:.4f} ms ({card})")
+    return {"by_field": res}
 
 
 def node_gather_check(dev, card) -> dict:
@@ -3502,12 +3536,14 @@ def main() -> int:
     from d2dgs_torch.models.gaussians import apply_deform
     from d2dgs_torch.ops.binning import bin_gaussians
     from d2dgs_torch.ops.cuda import build
+    from d2dgs_torch.ops.cuda import adam as adam_lib
     from d2dgs_torch.ops.cuda import blend as blend_lib
     from d2dgs_torch.ops.cuda import node_gather as node_gather_lib
     from d2dgs_torch.ops.cuda import raster3d as raster3d_lib
     from d2dgs_torch.ops.cuda.blend import (NREC, SOURCE, SOURCE_BWD,
                                             blend_bwd, blend_fwd,
                                             segment_layout)
+    from d2dgs_torch.ops.cuda.adam import adam_step
     from d2dgs_torch.ops.cuda.node_gather import gather_bwd
     from d2dgs_torch.ops.dense_raster import rasterize_dense
     from d2dgs_torch.ops.projection import preprocess, tile_grid
@@ -3524,11 +3560,12 @@ def main() -> int:
     log(f"[phase 1] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     t0 = time.time()
-    with ThreadPoolExecutor(5) as pool:      # one compiler per source
+    with ThreadPoolExecutor(6) as pool:      # one compiler per source
         native_lib = pool.submit(native.build)
         built = list(pool.map(build.build, (SOURCE, SOURCE_BWD,
                                             raster3d_lib.SOURCE,
-                                            node_gather_lib.SOURCE)))
+                                            node_gather_lib.SOURCE,
+                                            adam_lib.SOURCE)))
         native_lib = native_lib.result()
     for lib, report in built:
         log(f"[phase 1] built {lib.relative_to(ROOT)}")
@@ -3537,17 +3574,18 @@ def main() -> int:
                 log(f"[phase 1] ptxas: {line.strip()}")
     if not native.available():
         raise AssertionError("the native mesh library did not load")
-    log(f"[phase 1] the four CUDA sources and the native mesh library "
+    log(f"[phase 1] the five CUDA sources and the native mesh library "
         f"({native_lib.relative_to(ROOT)}, g++ from native/mesh_post.cpp) "
         f"built in {time.time() - t0:.1f} s")
     blend_lib._lib()        # binds K1's and K3's entry points, or raises
     blend_lib._lib_bwd()    # K2's and K4's
     raster3d_lib._lib()     # K5's and K6's
     node_gather_lib._lib()  # G2's
+    adam_lib._lib()         # A1's
     log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
         "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4), "
         "raster3d_fwd_launch and raster3d_bwd_launch (K5, K6), "
-        "node_gather_bwd_launch (G2)")
+        "node_gather_bwd_launch (G2), adam_launch (A1)")
     cfg = RasterConfig()
 
     # ---- phase 2 and 2b: kernels vs plain on small scenes ----
@@ -3657,8 +3695,8 @@ def main() -> int:
                                      f"{blend_fwd.launches}, expected {i + 1}")
             outs.append(out)
         serve_launches = launch_counts()
-        if serve_launches["blend_bwd"] or serve_launches["blend_dense_fwd"] \
-                or serve_launches["gather_bwd"]:
+        if any(serve_launches[k] for k in ("blend_bwd", "blend_dense_fwd",
+                                           "gather_bwd", "adam_step")):
             raise AssertionError(f"serving launched {serve_launches}")
         for t, out in zip(times, outs):
             if out.image.shape != (800, 800, 3) or \
@@ -3725,7 +3763,7 @@ def main() -> int:
     l1s, step_ms = [], []
     for i, sched in enumerate(scheds):
         before = (blend_fwd.launches, blend_bwd.launches,
-                  gather_bwd.launches)
+                  gather_bwd.launches, adam_step.launches)
         denom = state.gauss_stats.denom.clone()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -3744,6 +3782,10 @@ def main() -> int:
             raise AssertionError(f"step {i}: G2 launches "
                                  f"{gather_bwd.launches - before[2]}, "
                                  f"expected {NODE_GATHERS}")
+        if adam_step.launches != before[3] + ADAM_GROUPS:
+            raise AssertionError(f"step {i}: A1 launches "
+                                 f"{adam_step.launches - before[3]}, "
+                                 f"expected {ADAM_GROUPS}")
         check_trained(state, metrics, i)
         seen = state.gauss_stats.denom - denom
         if not bool(((seen == 0) | (seen == 1)).all()) or \
@@ -3833,6 +3875,10 @@ def main() -> int:
 
     # ---- phase 4b: G2 against its plain version at node-train's shapes ----
     res_g = node_gather_check(dev, card)
+
+    # ---- phase 4c: A1 against its plain version at the cells' shapes ----
+    res_a = adam_check(dev, card)
+    torch.cuda.empty_cache()
 
     # ---- phase 5a: K3 and K4 against their plain versions, and timed ----
     res5a = phase_5a(cfg, cam_s, fs_t, bin_t, gx_t, card)
@@ -4073,7 +4119,24 @@ def main() -> int:
         "plain_ms": [r["plain_ms"] for r in res_g["by_width"]],
         "bound_ms": [r["bound_ms"] for r in res_g["by_width"]],
         "bound_by": "bytes",
-        "library_ms": [r["library_ms"] for r in res_g["by_width"]]}]}))
+        "library_ms": [r["library_ms"] for r in res_g["by_width"]]}, {
+        "name": "adam_step", "route": "cuda",
+        "source": "d2dgs_torch/csrc/adam.cu",
+        "replaces": None,
+        "launches": sum(c["adam_step"] for c in paths.values()),
+        "launches_by_path": by_path("adam_step"),
+        "launches_per_step": [r["launches_per_step"]
+                              for r in res_a["by_field"]],
+        "fields": [r["field"] for r in res_a["by_field"]],
+        "elements": [r["elements"] for r in res_a["by_field"]],
+        "bitwise_plain": all(r["bitwise_plain"] for r in res_a["by_field"]),
+        "ms": [r["ms"] for r in res_a["by_field"]],
+        "host_ms": [r["host_ms"] for r in res_a["by_field"]],
+        "plain_ms": [r["plain_ms"] for r in res_a["by_field"]],
+        "plain_host_ms": [r["plain_host_ms"] for r in res_a["by_field"]],
+        "bound_ms": [r["bound_ms"] for r in res_a["by_field"]],
+        "bound_by": "bytes",
+        "library_ms": [r["library_ms"] for r in res_a["by_field"]]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,9 @@ and ``field.scatter_rows`` (rows the node warp's K-neighbour gathers
 gathered, and those whose gradient their backward accumulated, not all
 zero; ``ops/cuda/node_gather.py``), ``field.mlp_ops`` (the deform MLP
 forward's float operations, 2 * rows * the sum of fan_in * fan_out over
-its products, counted from the shapes).
+its products, counted from the shapes), ``adam.leaves`` and
+``adam.kernel_leaves`` (the leaves Adam updated, and those its kernel
+updated; ``train/optim.py``).
 """
 from __future__ import annotations
 

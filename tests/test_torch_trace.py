@@ -148,6 +148,16 @@ def test_counters_on_a_tiny_scene():
     assert c["host.reads"] > 0
 
 
+def test_adam_counters_of_a_step():
+    """adam.leaves counts the leaves of a step's three groups,
+    adam.kernel_leaves those the Adam kernel updated: none on the CPU."""
+    tr = _trainer()
+    _traced(tr.step)
+    c = trace.report()["counters"]
+    assert c["adam.leaves"] == len(_leaves(tr)) > 0
+    assert c["adam.kernel_leaves"] == 0
+
+
 def test_tracing_changes_no_result():
     """The loss, every updated leaf and the image, bitwise, with tracing
     on and off, from two identical trainers."""
@@ -203,6 +213,25 @@ def test_readers_of_a_report():
     trace.reset()
     assert spans.host_reads_per_unit(ctx) == ctx["spans"]["counters"][
         "host.reads"]
+
+
+def test_adam_kernel_share_reader():
+    """benchmark/metrics/adam_kernel_share.train.py: the kernel's leaves
+    over Adam's (%), None where the port's report lacks the counters (a
+    program without them) or there is no report."""
+    from benchlib import cells
+    read = cells.reader(Path(spans.__file__).resolve().parents[1]
+                        / "metrics", "adam_kernel_share.train")
+    counters = {"host.reads": 18, "adam.leaves": 114,
+                "adam.kernel_leaves": 114}
+    rep = {"units": 3, "spans": {}, "counters": counters}
+    assert read({"trace": {"units": 3}, "spans": rep}) == 100.0
+    half = dict(rep, counters=dict(counters, **{"adam.kernel_leaves": 57}))
+    assert read({"trace": {"units": 3}, "spans": half}) == 50.0
+    parent = dict(rep, counters={"host.reads": 36})
+    assert read({"trace": {"units": 3}, "spans": parent}) is None
+    assert read({"trace": {"units": 2}, "spans": rep}) is None
+    assert read({"spans": rep}) is None
 
 
 @pytest.mark.cuda
