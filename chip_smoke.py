@@ -212,22 +212,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "benchmark"))
+# The published peaks of one H100 SXM (float32 outside the tensor cores,
+# HBM) and the float32 operations per (pair, pixel) of csrc/blend_fwd.cu
+# and csrc/blend_bwd.cu, as the benchmark's rooflines count them.
+from benchlib.counts import (OPS_BLEND, OPS_BWD_BLEND,  # noqa: E402
+                             OPS_EVAL, PEAK_BYTES_S, PEAK_F32_FLOPS)
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): float32 outside the
-# tensor cores and HBM bandwidth.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES_S = 3.35e12
-# float32 operations per (pair, pixel) in csrc/blend_fwd.cu: the response
-# of every evaluated pair (ray-splat intersection, low-pass, exp, masks)
-# and the compositing of every blended pair (T, colour, normal, depth,
-# distortion, median).
-OPS_EVAL = 46
-OPS_BLEND = 39
-# csrc/blend_bwd.cu: every pair up to a pixel's last blended one repeats
-# the response (OPS_EVAL); every blended pair adds the pre-state rebuild,
-# the w/m/depth and alpha cotangents, the response adjoint and the
-# running sums (143), and its 18 gradients join the cross-pixel sum (18).
-OPS_BWD_BLEND = 143 + 18
 # csrc/raster3d.cu at C = 3, float32 operations per (pair, pixel), counted
 # from `pair_alpha` and the kernels' walks, of the pairs a sequential walk
 # evaluates.  Every such pair costs the two offsets, the quadratic form's
@@ -3577,11 +3568,9 @@ def main() -> int:
     log(f"[phase 1] the five CUDA sources and the native mesh library "
         f"({native_lib.relative_to(ROOT)}, g++ from native/mesh_post.cpp) "
         f"built in {time.time() - t0:.1f} s")
-    blend_lib._lib()        # binds K1's and K3's entry points, or raises
-    blend_lib._lib_bwd()    # K2's and K4's
-    raster3d_lib._lib()     # K5's and K6's
-    node_gather_lib._lib()  # G2's
-    adam_lib._lib()         # A1's
+    for binding in (blend_lib.LIB_FWD, blend_lib.LIB_BWD, raster3d_lib.LIB,
+                    node_gather_lib.LIB, adam_lib.LIB):
+        binding.bind()      # declares every entry point, or raises
     log("[phase 1] bound blend_fwd_launch and blend_dense_fwd_launch (K1, "
         "K3), blend_bwd_launch and blend_dense_bwd_launch (K2, K4), "
         "raster3d_fwd_launch and raster3d_bwd_launch (K5, K6), "

@@ -11,7 +11,6 @@ is also the kernel's oracle.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
@@ -43,30 +42,16 @@ class _Leaves(ctypes.Structure):
                 ("n", ctypes.c_int)]
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    lib.adam_max_leaves.restype = ctypes.c_int
-    lib.adam_leaves_bytes.restype = ctypes.c_int
+def _check_leaves(lib) -> None:
     if (lib.adam_max_leaves(), lib.adam_leaves_bytes()) != (
             MAX_LEAVES, ctypes.sizeof(_Leaves)):
         raise RuntimeError("csrc/adam.cu's leaf list does not match _Leaves")
-    lib.adam_launch.argtypes = [ctypes.POINTER(_Leaves), ctypes.c_void_p] \
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p]
-    lib.adam_launch.restype = ctypes.c_int
-    lib.adam_corrections_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p]
-    lib.adam_corrections_launch.restype = ctypes.c_int
-    lib.adam_error_string.argtypes = [ctypes.c_int]
-    lib.adam_error_string.restype = ctypes.c_char_p
-    return lib
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           + _lib().adam_error_string(err).decode())
+LIB = build.Library(SOURCE, {"adam_max_leaves": "", "adam_leaves_bytes": "",
+                             "adam_launch": "pp fffff p",
+                             "adam_corrections_launch": "pffpp"},
+                    check=_check_leaves)
 
 
 def leaf_fits(leaf: Leaf, count: torch.Tensor) -> bool:
@@ -79,12 +64,14 @@ def leaf_fits(leaf: Leaf, count: torch.Tensor) -> bool:
     dev, shape = count.device, leaf.p.shape
     if count.dtype != torch.int32 or not isinstance(leaf.lr, (int, float)):
         return False
+    try:
+        for name, t in (("p", leaf.p), ("m", leaf.m), ("v", leaf.v)):
+            build.expect(name, t, torch.float32, shape, dev)
+    except (TypeError, ValueError):
+        return False
     g = leaf.g
-    return all(t.device == dev and t.dtype == torch.float32
-               and t.is_contiguous() and t.shape == shape
-               for t in (leaf.p, leaf.m, leaf.v)) and (
-        g is None or (g.device == dev and g.dtype == torch.float32
-                      and g.shape == shape))
+    return g is None or (g.device == dev and g.dtype == torch.float32
+                         and g.shape == shape)
 
 
 def pack(leaves: list[Leaf]) -> list[_Leaves]:
@@ -117,14 +104,10 @@ def adam_step(leaves: list[Leaf], count: torch.Tensor, b1: float, b2: float,
         return
     leaves = [lf if lf.g is None or lf.g.is_contiguous()
               else lf._replace(g=lf.g.contiguous()) for lf in leaves]
-    dev = count.device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for lst in pack(leaves):
-            _raise_on(_lib().adam_launch(
-                ctypes.byref(lst), count.data_ptr(), b1, b2, 1 - b1, 1 - b2,
-                eps, stream), "adam_launch")
-            adam_step.launches += 1
+    for lst in pack(leaves):
+        LIB.launch("adam_launch", count.device, ctypes.addressof(lst), count,
+                   b1, b2, 1 - b1, 1 - b2, eps)
+        adam_step.launches += 1
     # the kernel writes through raw pointers: tell autograd, as an in-place
     # aten op would
     torch.autograd.graph.increment_version(
@@ -139,9 +122,5 @@ def adam_corrections(count: torch.Tensor, b1: float,
     """The kernel's bias corrections [1 - b1^t, 1 - b2^t] (float32 on the
     count's CUDA device) at the int32 count t in device memory."""
     out = torch.empty(2, dtype=torch.float32, device=count.device)
-    with torch.cuda.device(count.device):
-        stream = torch.cuda.current_stream(count.device).cuda_stream
-        _raise_on(_lib().adam_corrections_launch(
-            count.data_ptr(), b1, b2, out.data_ptr(), stream),
-            "adam_corrections_launch")
+    LIB.launch("adam_corrections_launch", count.device, count, b1, b2, out)
     return out

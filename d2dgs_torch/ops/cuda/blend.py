@@ -19,8 +19,6 @@ dense route's entry points (wrapped in blend_dense.py).
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import NamedTuple
 
@@ -140,46 +138,12 @@ def layout_len(num_tiles: int, n_items: int, n_units: int) -> int:
     return 3 * num_tiles + 2 + 2 * (n_items + n_units)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    timers = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    lib.blend_fwd_launch.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p] * 9 + timers
-    lib.blend_fwd_launch.restype = ctypes.c_int
-    lib.blend_dense_fwd_launch.argtypes = [ctypes.c_void_p] * 2 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p] * 9 + timers
-    lib.blend_dense_fwd_launch.restype = ctypes.c_int
-    lib.blend_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.blend_fwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-@functools.cache
-def _lib_bwd() -> ctypes.CDLL:
-    lib = build.load(SOURCE_BWD)
-    lib.blend_bwd_launch.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 11
-    lib.blend_bwd_launch.restype = ctypes.c_int
-    lib.blend_dense_bwd_launch.argtypes = [ctypes.c_void_p] + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
-    lib.blend_dense_bwd_launch.restype = ctypes.c_int
-    lib.blend_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.blend_bwd_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(name, t, dtype, ndim, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{ndim} dims")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+LIB_FWD = build.Library(SOURCE, {
+    "blend_fwd_launch": "pppp ii p ii ppppppppp ipip",
+    "blend_dense_fwd_launch": "pp iiiii ppppppppp ipip"})
+LIB_BWD = build.Library(SOURCE_BWD, {
+    "blend_bwd_launch": "ppp ii ppppppppppp",
+    "blend_dense_bwd_launch": "p iii pppppppppp"})
 
 
 def _check_pairs(feats_sorted, pair_rank, tile_start, tile_count, grid_x,
@@ -189,32 +153,20 @@ def _check_pairs(feats_sorted, pair_rank, tile_start, tile_count, grid_x,
     grid ``grid_x`` tiles wide; with it (int32 [T], each slot's tile in
     that grid) they may be any slab of it."""
     dev = feats_sorted.device
-    _check("feats_sorted", feats_sorted, torch.float32, 2, dev)
-    _check("pair_rank", pair_rank, torch.int32, 1, dev)
-    _check("tile_start", tile_start, torch.int32, 1, dev)
-    _check("tile_count", tile_count, torch.int32, 1, dev)
-    if feats_sorted.shape[1] != NFEAT:
-        raise ValueError(f"feats_sorted must be [N, {NFEAT}], got "
-                         f"{tuple(feats_sorted.shape)}")
+    build.expect("feats_sorted", feats_sorted, torch.float32, (None, NFEAT),
+                 dev)
+    for name, t in (("pair_rank", pair_rank), ("tile_start", tile_start),
+                    ("tile_count", tile_count)):
+        build.expect(name, t, torch.int32, 1, dev)
     num_tiles = tile_start.shape[0]
     if gtile is not None:
-        _check("gtile", gtile, torch.int32, 1, dev)
-        if gtile.shape[0] != num_tiles:
-            raise ValueError(f"gtile {tuple(gtile.shape)} does not give the "
-                             f"place of {num_tiles} tiles")
+        build.expect("gtile", gtile, torch.int32, (num_tiles,), dev)
     if tile_count.shape[0] != num_tiles or grid_x <= 0 \
             or (gtile is None and num_tiles % grid_x != 0):
         raise ValueError(f"tile arrays {tuple(tile_start.shape)}/"
                          f"{tuple(tile_count.shape)} do not form a grid "
                          f"{grid_x} tiles wide")
     return num_tiles
-
-
-def _check_rows(name, t, dtype, rows, num_tiles, device):
-    _check(name, t, dtype, 3, device)
-    if tuple(t.shape) != (num_tiles, rows, PIX):
-        raise ValueError(f"{name} must be [{num_tiles}, {rows}, {PIX}], got "
-                         f"{tuple(t.shape)}")
 
 
 def _check_segments(segments, num_tiles, device):
@@ -226,31 +178,23 @@ def _check_segments(segments, num_tiles, device):
     if segments.seg != SEG:
         raise ValueError(f"segments are laid out at {segments.seg}-pair "
                          f"segments; the kernels walk {SEG}")
-    _check("ckpt_off", segments.ckpt_off, torch.int32, 1, device)
-    _check("items", segments.items, torch.int32, 2, device)
-    _check("ckpt", segments.ckpt, torch.float32, 3, device)
+    build.expect("ckpt_off", segments.ckpt_off, torch.int32, (num_tiles,),
+                 device)
+    build.expect("items", segments.items, torch.int32, (None, 2), device)
     n_items = segments.items.shape[0]
-    if segments.ckpt_off.shape[0] != num_tiles \
-            or segments.items.shape[1] != 2 or tuple(
-            segments.ckpt.shape) != (n_items - num_tiles, NCKPT, PIX):
-        raise ValueError(f"segments {tuple(segments.ckpt_off.shape)}/"
-                         f"{tuple(segments.items.shape)}/"
-                         f"{tuple(segments.ckpt.shape)} do not fit "
-                         f"{num_tiles} tiles")
+    build.expect("ckpt", segments.ckpt, torch.float32,
+                 (n_items - num_tiles, NCKPT, PIX), device)
     return n_items
 
 
 def _check_train(records, segments, g_state, state, num_tiles, dev):
     """Checks of the training inputs of a backward kernel; returns the
     item count."""
-    _check_rows("state", state, torch.float32, NSTATE, num_tiles, dev)
-    _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
-    _check_rows("g_state", g_state, torch.float32, NSTATE, num_tiles, dev)
+    for name, t, dtype, rows in (("state", state, torch.float32, NSTATE),
+                                 ("records", records, torch.int32, NREC),
+                                 ("g_state", g_state, torch.float32, NSTATE)):
+        build.expect(name, t, dtype, (num_tiles, rows, PIX), dev)
     return _check_segments(segments, num_tiles, dev)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
 
 
 def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
@@ -287,7 +231,7 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
     (optional int64) receive the %globaltimer stamps at the start and end
     of the first pass's units 0..U-1 and of the work items 0..I-1.
     ``report`` (optional dict) receives what the launch allocated and
-    launched (``_fwd_launch``); ``forward_layout`` reads its work lists.
+    launched (``fwd_launch``); ``forward_layout`` reads its work lists.
     """
     if feats_sorted.device.type == "cpu":
         return blend_tiles_plain(feats_sorted, pair_rank, tile_start,
@@ -298,22 +242,19 @@ def blend_fwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         raise ValueError(f"blend_fwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
                              grid_x, gtile)
-    lib = _lib()
-    state = _fwd_launch(
-        lib.blend_fwd_launch,
-        (feats_sorted.data_ptr(), pair_rank.data_ptr(),
-         tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
-         _ptr(gtile)),
+    state = fwd_launch(
+        "blend_fwd_launch", (feats_sorted, pair_rank, tile_start, tile_count,
+                             num_tiles, grid_x, gtile),
         num_tiles, forward_work(num_tiles, pair_rank.shape[0], segments),
-        records, segments, n_pass_a, unit_ns, item_ns, report, dev,
-        "blend_fwd")
+        records, segments, n_pass_a, unit_ns, item_ns, report, dev)
     blend_fwd.launches += 1
     return state
 
 
-def _fwd_launch(launcher, head, num_tiles, work, records, segments,
-                n_pass_a, unit_ns, item_ns, report, dev, name):
-    """Checks of a forward kernel's optional inputs, its output and
+def fwd_launch(entry, head, num_tiles, work, records, segments, n_pass_a,
+               unit_ns, item_ns, report, dev):
+    """The forward kernel ``entry`` of ``LIB_FWD`` (K1 or K3) after its
+    arguments ``head``: checks of its optional inputs, its output and
     scratch buffers (the work layout, the first pass's products and
     candidate bits, the partial slots), the launch; returns the state
     rows or raises.  ``report`` (optional dict) receives the grids
@@ -321,17 +262,15 @@ def _fwd_launch(launcher, head, num_tiles, work, records, segments,
     (``scratch_bytes``) and the layout buffer itself."""
     ckpt = ckpt_off = None
     if records is not None:
-        _check_rows("records", records, torch.int32, NREC, num_tiles, dev)
+        build.expect("records", records, torch.int32, (num_tiles, NREC, PIX),
+                     dev)
         _check_segments(segments, num_tiles, dev)
         ckpt, ckpt_off = segments.ckpt, segments.ckpt_off
     if n_pass_a is not None:
-        _check("n_pass_a", n_pass_a, torch.int64, 1, dev)
-    for t, what in ((unit_ns, "unit_ns"), (item_ns, "item_ns")):
+        build.expect("n_pass_a", n_pass_a, torch.int64, 1, dev)
+    for name, t in (("unit_ns", unit_ns), ("item_ns", item_ns)):
         if t is not None:
-            _check(what, t, torch.int64, 2, dev)
-            if t.shape[1] != 2:
-                raise ValueError(f"{what} must be [n, 2], got "
-                                 f"{tuple(t.shape)}")
+            build.expect(name, t, torch.int64, (None, 2), dev)
     n_items, n_slots, n_units = work
     state = torch.empty((num_tiles, NSTATE, PIX), dtype=torch.float32,
                         device=dev)
@@ -342,16 +281,9 @@ def _fwd_launch(launcher, head, num_tiles, work, records, segments,
     part = torch.empty((n_slots, NPART, PIX), dtype=torch.float32,
                        device=dev)
     timed = lambda t: 0 if t is None else t.shape[0]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launcher(*head, n_items, n_units, state.data_ptr(),
-                       _ptr(records), _ptr(ckpt), _ptr(ckpt_off),
-                       layout.data_ptr(), _ptr(cand), _ptr(part),
-                       _ptr(n_pass_a), _ptr(unit_ns), timed(unit_ns),
-                       _ptr(item_ns), timed(item_ns), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + _lib().blend_fwd_error_string(err).decode())
+    LIB_FWD.launch(entry, dev, *head, n_items, n_units, state, records, ckpt,
+                   ckpt_off, layout, cand, part, n_pass_a, unit_ns,
+                   timed(unit_ns), item_ns, timed(item_ns))
     if report is not None:
         report.update(
             num_tiles=num_tiles, grid_items=n_items, grid_units=n_units,
@@ -849,32 +781,33 @@ def blend_bwd(feats_sorted: torch.Tensor, pair_rank: torch.Tensor,
         raise ValueError(f"blend_bwd runs on cpu or cuda, not {dev}")
     num_tiles = _check_pairs(feats_sorted, pair_rank, tile_start, tile_count,
                              grid_x, gtile)
-    n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
-    if n_reduce is not None:
-        _check("n_reduce", n_reduce, torch.int64, 1, dev)
-    if item_ns is not None:
-        _check("item_ns", item_ns, torch.int64, 2, dev)
-        if tuple(item_ns.shape) != (n_items, 2):
-            raise ValueError(f"item_ns must be [{n_items}, 2]")
-    d_feats = torch.zeros_like(feats_sorted)
-    lib = _lib_bwd()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_bwd_launch(
-            feats_sorted.data_ptr(), pair_rank.data_ptr(),
-            tile_start.data_ptr(), n_items, grid_x, _ptr(gtile),
-            segments.items.data_ptr(), segments.ckpt_off.data_ptr(),
-            segments.ckpt.data_ptr(), state.data_ptr(), records.data_ptr(),
-            g_state.data_ptr(), d_feats.data_ptr(), _ptr(n_reduce),
-            _ptr(item_ns), stream)
-    if err != 0:
-        raise RuntimeError("blend_bwd kernel launch failed: "
-                           + lib.blend_bwd_error_string(err).decode())
+    d_feats = bwd_launch("blend_bwd_launch",
+                         (feats_sorted, pair_rank, tile_start), (grid_x, gtile),
+                         num_tiles, state, records, g_state, segments,
+                         n_reduce, item_ns, dev)
     blend_bwd.launches += 1
     return d_feats
 
 
 blend_bwd.launches = 0
+
+
+def bwd_launch(entry, head, mid, num_tiles, state, records, g_state,
+               segments, n_reduce, item_ns, dev):
+    """The backward kernel ``entry`` of ``LIB_BWD`` (K2 or K4), its
+    arguments ``head``, the item count, ``mid``, then the training inputs:
+    checks of those and of the optional counters, the launch; returns the
+    gradient in ``head[0]`` or raises."""
+    n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
+    if n_reduce is not None:
+        build.expect("n_reduce", n_reduce, torch.int64, 1, dev)
+    if item_ns is not None:
+        build.expect("item_ns", item_ns, torch.int64, (n_items, 2), dev)
+    grad = torch.zeros_like(head[0])
+    LIB_BWD.launch(entry, dev, *head, n_items, *mid, segments.items,
+                   segments.ckpt_off, segments.ckpt, state, records, g_state,
+                   grad, n_reduce, item_ns)
+    return grad
 
 
 class BlendTiles(torch.autograd.Function):

@@ -19,9 +19,9 @@ import torch
 
 from ..binning import Binning
 from ..tiled_raster import NFEAT, PIX, blend_walk
-from .blend import (DEAD_ROWS, NREC, SEG, Segments, _check, _check_train,
-                    _fwd_launch, _lib, _lib_bwd, _ptr, forward_work,
-                    segment_layout)
+from . import build
+from .blend import (DEAD_ROWS, NREC, SEG, Segments, bwd_launch, forward_work,
+                    fwd_launch, segment_layout)
 
 
 def build_gdata(feats: torch.Tensor, binning: Binning, tile_cap: int):
@@ -106,12 +106,9 @@ def _check_dense(gdata, counts, grid_x):
     """Device, type and shape checks shared by K3 and K4; returns
     (tiles, tile_cap)."""
     dev = gdata.device
-    _check("gdata", gdata, torch.float32, 3, dev)
-    _check("counts", counts, torch.int32, 1, dev)
-    num_tiles, cap, nfeat = gdata.shape
-    if nfeat != NFEAT:
-        raise ValueError(f"gdata must be [T, tile_cap, {NFEAT}], got "
-                         f"{tuple(gdata.shape)}")
+    build.expect("gdata", gdata, torch.float32, (None, None, NFEAT), dev)
+    build.expect("counts", counts, torch.int32, 1, dev)
+    num_tiles, cap, _ = gdata.shape
     if counts.shape[0] != num_tiles or grid_x <= 0 \
             or num_tiles % grid_x != 0:
         raise ValueError(f"gdata {tuple(gdata.shape)} and counts "
@@ -145,14 +142,11 @@ def blend_dense_fwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_fwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
-    lib = _lib()
-    state = _fwd_launch(
-        lib.blend_dense_fwd_launch,
-        (gdata.data_ptr(), counts.data_ptr(), cap, num_tiles, grid_x),
+    state = fwd_launch(
+        "blend_dense_fwd_launch", (gdata, counts, cap, num_tiles, grid_x),
         num_tiles, forward_work(num_tiles, max_pairs, segments,
                                 max_segs=-(-cap // SEG)),
-        records, segments, n_pass_a, unit_ns, item_ns, report, dev,
-        "blend_dense_fwd")
+        records, segments, n_pass_a, unit_ns, item_ns, report, dev)
     blend_dense_fwd.launches += 1
     return state
 
@@ -181,26 +175,9 @@ def blend_dense_bwd(gdata: torch.Tensor, counts: torch.Tensor, grid_x: int,
     if dev.type != "cuda":
         raise ValueError(f"blend_dense_bwd runs on cpu or cuda, not {dev}")
     num_tiles, cap = _check_dense(gdata, counts, grid_x)
-    n_items = _check_train(records, segments, g_state, state, num_tiles, dev)
-    if n_reduce is not None:
-        _check("n_reduce", n_reduce, torch.int64, 1, dev)
-    if item_ns is not None:
-        _check("item_ns", item_ns, torch.int64, 2, dev)
-        if tuple(item_ns.shape) != (n_items, 2):
-            raise ValueError(f"item_ns must be [{n_items}, 2]")
-    d_gdata = torch.zeros_like(gdata)
-    lib = _lib_bwd()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.blend_dense_bwd_launch(
-            gdata.data_ptr(), cap, n_items, grid_x,
-            segments.items.data_ptr(), segments.ckpt_off.data_ptr(),
-            segments.ckpt.data_ptr(), state.data_ptr(), records.data_ptr(),
-            g_state.data_ptr(), d_gdata.data_ptr(), _ptr(n_reduce),
-            _ptr(item_ns), stream)
-    if err != 0:
-        raise RuntimeError("blend_dense_bwd kernel launch failed: "
-                           + lib.blend_bwd_error_string(err).decode())
+    d_gdata = bwd_launch("blend_dense_bwd_launch", (gdata, cap), (grid_x,),
+                         num_tiles, state, records, g_state, segments,
+                         n_reduce, item_ns, dev)
     blend_dense_bwd.launches += 1
     return d_gdata
 

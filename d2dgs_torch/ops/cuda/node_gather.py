@@ -18,7 +18,6 @@ accumulated, those whose gradient row is not all zero, to
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -26,28 +25,8 @@ from ... import trace
 from . import build
 
 SOURCE = "node_gather.cu"
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    lib.node_gather_bwd_plan.argtypes = [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int)]
-    lib.node_gather_bwd_plan.restype = ctypes.c_int
-    lib.node_gather_bwd_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int)] + [ctypes.c_void_p] * 4
-    lib.node_gather_bwd_launch.restype = ctypes.c_int
-    lib.node_gather_error_string.argtypes = [ctypes.c_int]
-    lib.node_gather_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} failed: "
-                           + _lib().node_gather_error_string(err).decode())
+LIB = build.Library(SOURCE, {"node_gather_bwd_plan": "qiip",
+                             "node_gather_bwd_launch": "ppqiip pppp"})
 
 
 def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -68,8 +47,7 @@ def bwd_plan(n_entries: int, m: int, c: int) -> tuple[int, int, int]:
     fit a block's shared memory; raises where one column of m rows does
     not fit either."""
     plan = (ctypes.c_int * 3)()
-    _raise_on(_lib().node_gather_bwd_plan(n_entries, m, c, plan),
-              "node_gather_bwd_plan")
+    LIB.call("node_gather_bwd_plan", n_entries, m, c, ctypes.addressof(plan))
     if plan[2] < 1:
         raise ValueError(f"{m} nodes: one column of the node tile does not "
                          "fit a block's shared memory")
@@ -90,14 +68,10 @@ def gather_bwd(g: torch.Tensor, idx: torch.Tensor, m: int,
     grad = torch.empty((m, c), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
         plan = bwd_plan(n, m, c)
-        partials = torch.empty((plan[0], m, c), dtype=g.dtype,
-                               device=g.device)
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        _raise_on(_lib().node_gather_bwd_launch(
-            g.data_ptr(), idx.data_ptr(), n, m, c, (ctypes.c_int * 3)(*plan),
-            partials.data_ptr(), grad.data_ptr(),
-            None if n_rows is None else n_rows.data_ptr(), stream),
-            "node_gather_bwd_launch")
+    partials = torch.empty((plan[0], m, c), dtype=g.dtype, device=g.device)
+    plan_c = (ctypes.c_int * 3)(*plan)
+    LIB.launch("node_gather_bwd_launch", g.device, g, idx, n, m, c,
+               ctypes.addressof(plan_c), partials, grad, n_rows)
     gather_bwd.launches += 1
     return grad
 

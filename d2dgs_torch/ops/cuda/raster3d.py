@@ -18,8 +18,6 @@ kernels are built for C = 3 colour channels (the flow path's) only.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -30,8 +28,7 @@ from ..raster3d import (DEC3_BLEND, DEC3_EVAL, DEC3_T, alpha3d,
                         blend3d_plain)
 from ..tiled_raster import PIX, _tile_pixels
 from . import build
-from .blend import (BAND_ULPS, SEG, ULP_CUTOFF, UNIT, _check, _ptr,
-                    forward_work, layout_len)
+from .blend import BAND_ULPS, SEG, ULP_CUTOFF, UNIT, forward_work, layout_len
 
 SOURCE = "raster3d.cu"
 CHANNELS = 3          # the colour channels the kernels are built for
@@ -51,19 +48,9 @@ CULL_MARGIN = 1e-3
 IMG_TOL, DEPTH_TOL = 2e-5, 2e-4
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.load(SOURCE)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.raster3d_fwd_launch.argtypes = [p] * 8 + [i] * 7 + [p] * 12 + [
-        i, p, i, p]
-    lib.raster3d_fwd_launch.restype = i
-    lib.raster3d_bwd_launch.argtypes = [p] * 3 + [i] * 4 + [p] * 16 + [
-        i, p]
-    lib.raster3d_bwd_launch.restype = i
-    lib.raster3d_error_string.argtypes = [i]
-    lib.raster3d_error_string.restype = ctypes.c_char_p
-    return lib
+LIB = build.Library(SOURCE, {
+    "raster3d_fwd_launch": "pppppppp iiiiiii pppppppppppp ipip",
+    "raster3d_bwd_launch": "ppp iiii pppppppppppppppp ip"})
 
 
 def walk_cap(chunk: int, tile_cap: int) -> int:
@@ -115,10 +102,10 @@ def check_inputs(conic, center, colors, depth, opac, pair_gid, tile_start,
     for name, t, ndim in (("conic", conic, 2), ("center", center, 2),
                           ("colors", colors, 2), ("depth", depth, 1),
                           ("opac", opac, 1)):
-        _check(name, t, torch.float32, ndim, dev)
+        build.expect(name, t, torch.float32, ndim, dev)
     for name, t in (("pair_gid", pair_gid), ("tile_start", tile_start),
                     ("tile_count", tile_count)):
-        _check(name, t, torch.int32, 1, dev)
+        build.expect(name, t, torch.int32, 1, dev)
     n, c = colors.shape
     if conic.shape != (n, 3) or center.shape != (n, 2) \
             or depth.shape != (n,) or opac.shape != (n,):
@@ -136,40 +123,19 @@ def check_inputs(conic, center, colors, depth, opac, pair_gid, tile_start,
     return n, c
 
 
-def _check_shape(name, t, dtype, shape, dev):
-    _check(name, t, dtype, len(shape), dev)
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must be {list(shape)}, got "
-                         f"{tuple(t.shape)}")
-
-
 def _check_walk(walk: Walk3D, num_tiles: int, n_pairs: int, n_gauss: int,
                 dev):
     n_items, _, n_units = forward_work(num_tiles, n_pairs)
     if walk.grid_items != n_items:
         raise ValueError(f"walk was laid out for {walk.grid_items} items; "
                          f"these inputs take {n_items} (walk_buffers)")
-    _check_shape("n_walk", walk.n_walk, torch.int32, (num_tiles, PIX), dev)
-    _check_shape("layout", walk.layout, torch.int32,
-                 (layout_len(num_tiles, n_items, n_units),), dev)
-    _check_shape("ckpt", walk.ckpt, torch.float32,
-                 (n_pairs // SEG, NCK, PIX), dev)
-    _check_shape("rows", walk.rows, torch.float32, (n_gauss, NROW), dev)
-
-
-def _check_timers(dev, **timers):
-    for name, t in timers.items():
-        if t is not None:
-            _check(name, t, torch.int64, 2, dev)
-            if t.shape[1] != 2:
-                raise ValueError(f"{name} must be [n, 2], got "
-                                 f"{tuple(t.shape)}")
-
-
-def _raise(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + _lib().raster3d_error_string(err).decode())
+    for name, t, dtype, shape in (
+            ("n_walk", walk.n_walk, torch.int32, (num_tiles, PIX)),
+            ("layout", walk.layout, torch.int32,
+             (layout_len(num_tiles, n_items, n_units),)),
+            ("ckpt", walk.ckpt, torch.float32, (n_pairs // SEG, NCK, PIX)),
+            ("rows", walk.rows, torch.float32, (n_gauss, NROW))):
+        build.expect(name, t, dtype, shape, dev)
 
 
 def blend3d_fwd(conic, center, colors, depth, opac, pair_gid, tile_start,
@@ -218,10 +184,12 @@ def blend3d_fwd(conic, center, colors, depth, opac, pair_gid, tile_start,
                              dtype=torch.int32, device=dev)
         rows = torch.empty((n, NROW), dtype=torch.float32, device=dev)
     if work is not None:
-        _check_shape("work", work, torch.int32, (num_tiles, 2, PIX), dev)
+        build.expect("work", work, torch.int32, (num_tiles, 2, PIX), dev)
     if stats is not None:
-        _check_shape("stats", stats, torch.int64, (3,), dev)
-    _check_timers(dev, unit_ns=unit_ns, item_ns=item_ns)
+        build.expect("stats", stats, torch.int64, (3,), dev)
+    for name, t in (("unit_ns", unit_ns), ("item_ns", item_ns)):
+        if t is not None:
+            build.expect(name, t, torch.int64, (None, 2), dev)
     T = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
     C = torch.empty((num_tiles, PIX, c), dtype=torch.float32, device=dev)
     D = torch.empty((num_tiles, PIX), dtype=torch.float32, device=dev)
@@ -230,20 +198,12 @@ def blend3d_fwd(conic, center, colors, depth, opac, pair_gid, tile_start,
     part = torch.empty((n_slots, NPART, PIX), dtype=torch.float32,
                        device=dev)
     timed = lambda t: 0 if t is None else t.shape[0]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raster3d_fwd_launch(
-            conic.data_ptr(), center.data_ptr(), colors.data_ptr(),
-            depth.data_ptr(), opac.data_ptr(), pair_gid.data_ptr(),
-            tile_start.data_ptr(), tile_count.data_ptr(), num_tiles, grid_x,
-            walk_cap(chunk, tile_cap), c, n, n_items, n_units,
-            rows.data_ptr(), layout.data_ptr(), cand.data_ptr(),
-            part.data_ptr(), T.data_ptr(), C.data_ptr(), D.data_ptr(),
-            _ptr(walk and walk.n_walk), _ptr(walk and walk.ckpt),
-            _ptr(work), _ptr(stats), _ptr(unit_ns), timed(unit_ns),
-            _ptr(item_ns), timed(item_ns), stream)
-    _raise(err, "blend3d_fwd")
+    LIB.launch("raster3d_fwd_launch", dev, conic, center, colors, depth, opac,
+               pair_gid, tile_start, tile_count, num_tiles, grid_x,
+               walk_cap(chunk, tile_cap), c, n, n_items, n_units, rows,
+               layout, cand, part, T, C, D, walk and walk.n_walk,
+               walk and walk.ckpt, work, stats, unit_ns, timed(unit_ns),
+               item_ns, timed(item_ns))
     blend3d_fwd.launches += 1
     if report is not None:
         report.update(
@@ -307,26 +267,18 @@ def blend3d_bwd(conic, center, colors, depth, opac, pair_gid, tile_start,
                            ("gT", gT, (num_tiles, PIX)),
                            ("gC", gC, (num_tiles, PIX, c)),
                            ("gD", gD, (num_tiles, PIX))):
-        _check_shape(name, t, torch.float32, shape, dev)
+        build.expect(name, t, torch.float32, shape, dev)
     _check_walk(walk, num_tiles, pair_gid.shape[0], n, dev)
     if stats is not None:
-        _check_shape("stats", stats, torch.int64, (2,), dev)
-    _check_timers(dev, item_ns=item_ns)
+        build.expect("stats", stats, torch.int64, (2,), dev)
+    if item_ns is not None:
+        build.expect("item_ns", item_ns, torch.int64, (None, 2), dev)
     grads = [torch.zeros_like(t) for t in (conic, center, colors, depth,
                                            opac)]
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raster3d_bwd_launch(
-            walk.rows.data_ptr(), pair_gid.data_ptr(),
-            tile_start.data_ptr(), num_tiles, grid_x, c, walk.grid_items,
-            walk.layout.data_ptr(), walk.ckpt.data_ptr(),
-            T.data_ptr(), C.data_ptr(), D.data_ptr(),
-            walk.n_walk.data_ptr(), gT.data_ptr(), gC.data_ptr(),
-            gD.data_ptr(), *(g.data_ptr() for g in grads), _ptr(stats),
-            _ptr(item_ns), 0 if item_ns is None else item_ns.shape[0],
-            stream)
-    _raise(err, "blend3d_bwd")
+    LIB.launch("raster3d_bwd_launch", dev, walk.rows, pair_gid, tile_start,
+               num_tiles, grid_x, c, walk.grid_items, walk.layout, walk.ckpt,
+               T, C, D, walk.n_walk, gT, gC, gD, *grads, stats, item_ns,
+               0 if item_ns is None else item_ns.shape[0])
     blend3d_bwd.launches += 1
     return tuple(grads)
 

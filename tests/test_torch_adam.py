@@ -323,7 +323,7 @@ def test_step_without_host_sync(cuda):
     host memory."""
     groups, opts = _groups("hash", cuda)
     grads = [_grads(g, 0, seed=i) for i, g in enumerate(groups)]
-    adam_cuda._lib()
+    adam_cuda.LIB.bind()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

@@ -36,9 +36,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
+# HBM bandwidth (bytes/s), as the benchmark's rooflines take it
+from benchlib.counts import PEAK_BYTES_S  # noqa: E402
 
-HBM = 3.35e12           # bytes/s
 BYTES_PER_ELEMENT = 28  # p, g, m, v read; p, m, v written
 
 
@@ -130,7 +132,7 @@ def measure(dev: torch.device, reps: int = 20) -> list[dict]:
         lib = torch.optim.Adam(
             [{"params": ps, "lr": 1e-4} for ps in lib_params], eps=1e-15,
             fused=True)
-        bound_ms = elements * BYTES_PER_ELEMENT / HBM * 1e3
+        bound_ms = elements * BYTES_PER_ELEMENT / PEAK_BYTES_S * 1e3
         res = {
             "field": deform_type,
             "leaves": [len(g) for g in groups], "elements": elements,

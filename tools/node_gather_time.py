@@ -27,9 +27,11 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
+# HBM bandwidth (bytes/s), as the benchmark's rooflines take it
+from benchlib.counts import PEAK_BYTES_S  # noqa: E402
 
-HBM = 3.35e12           # bytes/s
 N, K, M, LIVE = 200_000, 3, 1024, 83_252
 
 
@@ -70,7 +72,7 @@ def measure(dev: torch.device, reps: int = 50) -> list[dict]:
         grad = gather_bwd(g, idx, M)
         sum64 = torch.zeros((M, c), dtype=torch.float64, device=dev)
         sum64.index_add_(0, idx.reshape(-1), g.reshape(-1, c).double())
-        bound_ms = (N * K * (c * 4 + 8) + M * c * 4) / HBM * 1e3
+        bound_ms = (N * K * (c * 4 + 8) + M * c * 4) / PEAK_BYTES_S * 1e3
         res = {
             "table": [M, c], "rows": [N, K], "plan": list(plan),
             "rel_err_plain": _rel(grad, scatter_rows_plain(g, idx, M)),
