@@ -51,12 +51,11 @@ Phases (each one fails the run with a non-zero exit):
      lengths, each K2 work item's and each K1 pass's unit or item
      %globaltimer duration (the longest, the span), the counts, K1's
      first-pass evaluations, its scratch bytes and the checkpoint bytes;
-  4b. hold G2 at node-train's shapes (200,000 x 3 rows into [1024, 13]
-     and [1024, 18], the 116,748 dead rows piled on three nodes with a
-     zero gradient) within 1e-6 of its plain version and of a float64
-     sum, bitwise on a second call, and time it beside its bound, the
-     plain version and aten's indexing backward
-     (tools/node_gather_time.py);
+  4b. hold G2 at the rows a node training step gives it (the 83,252
+     live surfels x 3 random nodes into [1024, 13] and [1024, 18])
+     within 1e-6 of its plain version and of a float64 sum, bitwise on
+     a second call, and time it beside its bound, the plain version and
+     aten's indexing backward (tools/node_gather_time.py);
   4c. hold A1 on the three groups at node-train's, hash-train's and
      mlp-train's shapes (200,000 slots; the node field, the hash field's
      twelve 2^19 x 2 tables, or the 8x256 MLP field): one step bitwise
@@ -558,9 +557,7 @@ def scene_render(gauss, nodes, deform_cfg, cam, cfg) -> torch.Tensor:
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.render.renderer import render
     with torch.no_grad():
-        d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                             feature=gauss.feature,
-                             motion_mask=gauss.motion_mask)
+        d = deform_gaussians(nodes, deform_cfg, gauss, cam.time)
         return render(cam, gauss, torch.zeros(3, device=gauss.xyz.device),
                       d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
                       d_scaling=d["d_scaling"], cfg=cfg).image
@@ -714,8 +711,7 @@ def train_stage_ms(state, cam, gt, cfg, sched, reps: int = 3) -> dict:
                          nodes.nodes.shape[0])
 
     def warp():
-        return deform_gaussians(nodes, cfg.deform_cfg, g.xyz, cam.time,
-                                feature=g.feature, motion_mask=g.motion_mask)
+        return deform_gaussians(nodes, cfg.deform_cfg, g, cam.time)
 
     d = warp()
 
@@ -1139,10 +1135,11 @@ def adam_check(dev, card) -> dict:
 
 
 def node_gather_check(dev, card) -> dict:
-    """G2 at node-train's shapes (tools/node_gather_time.py, imported as a
-    module): within NODE_GATHER_REL of its plain version and of a float64
-    sum, the same bits on a second call, and its time beside its bound,
-    the plain version and aten's indexing backward."""
+    """G2 at the rows a node training step gives it, the live surfels'
+    (tools/node_gather_time.py, imported as a module): within
+    NODE_GATHER_REL of its plain version and of a float64 sum, the same
+    bits on a second call, and its time beside its bound, the plain
+    version and aten's indexing backward."""
     sys.path.insert(0, str(ROOT / "tools"))
     import node_gather_time
     res = node_gather_time.measure(dev)
@@ -2039,9 +2036,7 @@ def scene_flow(gauss, nodes, deform_cfg, cam1, cam2, cfg, step):
     the deformation ``optical_flow_loss`` gives it."""
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.render.renderer import render_flow
-    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss.xyz, c.time,
-                               feature=gauss.feature,
-                               motion_mask=gauss.motion_mask, step=step)
+    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss, c.time, step=step)
               for c in (cam1, cam2))
     return render_flow(gauss, cam1, cam2, d1["d_xyz"], d2["d_xyz"],
                        d_rotation1=d1["d_rotation"],
@@ -2056,9 +2051,7 @@ def flow_raster_inputs(gauss, nodes, deform_cfg, cam1, cam2, step) -> list:
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.render.renderer import _full_proj_uvz
     from d2dgs_torch.utils.quaternion import quat_normalize
-    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss.xyz, c.time,
-                               feature=gauss.feature,
-                               motion_mask=gauss.motion_mask, step=step)
+    d1, d2 = (deform_gaussians(nodes, deform_cfg, gauss, c.time, step=step)
               for c in (cam1, cam2))
     uv = (_full_proj_uvz(gauss.xyz + d2["d_xyz"], cam2)
           - _full_proj_uvz(gauss.xyz + d1["d_xyz"], cam1))[:, :2]
@@ -3097,8 +3090,7 @@ def shard_view(gauss, nodes, deform_cfg, cam):
     from d2dgs_torch.models.deform import deform_gaussians
     from d2dgs_torch.models.gaussians import apply_deform
     from d2dgs_torch.utils.sh import sh_to_rgb
-    d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                         feature=gauss.feature, motion_mask=gauss.motion_mask)
+    d = deform_gaussians(nodes, deform_cfg, gauss, cam.time)
     means, scales, quats, opac, sh = apply_deform(
         gauss, d["d_xyz"], d["d_rotation"], d["d_scaling"])
     dirs = means - cam.cam_center[None, :]
@@ -3378,8 +3370,7 @@ def viewer_frames(dev, card, res6) -> dict:
     cam = _camera_from_message(msgs[-1], dev)
     g = tr.state.gauss
     with torch.no_grad():
-        d = deform_gaussians(tr.state.nodes, tcfg.deform_cfg, g.xyz, cam.time,
-                             feature=g.feature, motion_mask=g.motion_mask)
+        d = deform_gaussians(tr.state.nodes, tcfg.deform_cfg, g, cam.time)
         img = render(cam, g, torch.zeros(3, device=dev), d_xyz=d["d_xyz"],
                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
                      cfg=tcfg.raster).image
@@ -3613,9 +3604,7 @@ def main() -> int:
                          device=dev) for t in times]
 
     def warp(cam):
-        return deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                                feature=gauss.feature,
-                                motion_mask=gauss.motion_mask)
+        return deform_gaussians(nodes, deform_cfg, gauss, cam.time)
 
     def serve(cam):
         """One request: the node warp, then the render."""

@@ -31,9 +31,7 @@ def render_view(cam, gauss, nodes, deform_cfg, raster_cfg, bg,
                 depth_filtering: bool = False):
     """The node warp at the camera's time, then the render."""
     with trace.span("d2dgs.view"):
-        d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                             feature=gauss.feature,
-                             motion_mask=gauss.motion_mask)
+        d = deform_gaussians(nodes, deform_cfg, gauss, cam.time)
         return render(cam, gauss, bg, d_xyz=d["d_xyz"],
                       d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
                       depth_filtering=depth_filtering, cfg=raster_cfg)

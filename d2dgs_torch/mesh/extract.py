@@ -25,9 +25,7 @@ def auto_bounds(gauss, nodes, deform_cfg, mesh_time: float, voxel: float):
     its largest side plus one voxel (host float32, as the JAX package)."""
     t = torch.tensor(mesh_time, dtype=torch.float32, device=gauss.xyz.device)
     with torch.no_grad():
-        d0 = deform_gaussians(nodes, deform_cfg, gauss.xyz, t,
-                              feature=gauss.feature,
-                              motion_mask=gauss.motion_mask)
+        d0 = deform_gaussians(nodes, deform_cfg, gauss, t)
         xyz = (gauss.xyz + d0["d_xyz"]).cpu().numpy()
     am = gauss.alive.cpu().numpy()
     xyz = xyz[am] if am.any() else xyz
@@ -87,9 +85,7 @@ def reconstruct_mesh(cameras, gauss, nodes, node_cfg, raster_cfg,
                               for a in (vol.tsdf, vol.weight, vol.color))
     clock = _Clock(dev)
     t = torch.tensor(mesh_time, dtype=torch.float32, device=dev)
-    d = deform_gaussians(nodes, deform_cfg, gauss.xyz, t,
-                         feature=gauss.feature,
-                         motion_mask=gauss.motion_mask)
+    d = deform_gaussians(nodes, deform_cfg, gauss, t)
     for i, cam in enumerate(cameras):
         out = render(cam, gauss, bg, d_xyz=d["d_xyz"],
                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],

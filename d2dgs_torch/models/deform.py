@@ -55,12 +55,19 @@ def init_deform(cfg: DeformConfig, generator: torch.Generator | None = None,
     raise ValueError(f"unknown deform_type {cfg.deform_type!r}")
 
 
+# the per-row inputs, beside xyz, that apply_deform_field reads for a type
+# (the GaussianParams attributes deform_gaussians gathers)
+ROW_INPUTS = {"node": ("feature", "motion_mask"), "mlp": (), "hash": (),
+              "static": ()}
+
+
 def apply_deform_field(params, cfg: DeformConfig, xyz: torch.Tensor, t,
                        feature=None, motion_mask=None, step=10**9) -> dict:
     """-> dict(d_xyz, d_rotation, d_scaling, d_opacity, d_color) of the
     Gaussians at ``xyz`` at time ``t`` (DeformModel.step,
-    scene/deform_model.py:41-44).  ``params``: the field's parameters
-    (``init_deform``)."""
+    scene/deform_model.py:41-44), at every row given.  ``params``: the
+    field's parameters (``init_deform``); of the per-row inputs beside
+    ``xyz``, a type reads those ``ROW_INPUTS`` names."""
     n = xyz.shape[0]
     if cfg.deform_type == "node":
         mm = (motion_mask if motion_mask is not None
@@ -86,15 +93,61 @@ def apply_deform_field(params, cfg: DeformConfig, xyz: torch.Tensor, t,
                                   "d_opacity", "d_color")}
 
 
-def deform_gaussians(nodes: NodeParams, cfg: DeformConfig,
-                     xyz: torch.Tensor, t, feature=None, motion_mask=None,
+# the last row list built: (alive mask, its version counter, the rows or
+# None), replaced whole so that a reader sees one entry's three parts
+_live = (None, -1, None)
+
+
+def live_rows(alive: torch.Tensor):
+    """The slots of the [C] bool mask ``alive`` that hold a live surfel,
+    as int64 indices ([N_live]), or None where the field should run over
+    every slot: none dead, or none alive.  Built once per mask and per
+    write to it (``alive._version`` goes up on every in-place write:
+    densify, a checkpoint load) with one host read, then reused: a step or
+    a view on an unchanged mask reads nothing back."""
+    global _live
+    mask, version, rows = _live
+    if mask is alive and version == alive._version:
+        return rows
+    trace.count("host.reads", 1)  # the count sizes the list
+    trace.count("field.row_lists", 1)
+    rows = torch.nonzero(alive).flatten()
+    if rows.shape[0] in (0, alive.shape[0]):
+        rows = None
+    _live = (alive, alive._version, rows)
+    return rows
+
+
+def deform_gaussians(nodes: NodeParams, cfg: DeformConfig, gauss, t,
                      step=10**9) -> dict:
-    """The trainer's, eval's and mesher's dispatch over the TrainState's
-    one node slot: for the mlp and hash types, ``nodes.mlp`` holds the
-    field's parameters (DeformModel.step); "static" reads no parameters,
-    so ``nodes`` may be None."""
+    """The field at the Gaussians ``gauss`` (a GaussianParams: ``xyz``,
+    ``alive`` and the type's ``ROW_INPUTS``) at time ``t``, over the
+    TrainState's one node slot: for the mlp and hash types, ``nodes.mlp``
+    holds the field's parameters (DeformModel.step); "static" reads no
+    parameters, so ``nodes`` may be None.
+
+    The field runs on the live rows only (``live_rows``): its per-row
+    inputs are gathered and its outputs scattered into [C, k] zeros, so a
+    dead slot's deformation is 0 (every caller masks dead slots).  With
+    no slot dead, every row is evaluated as ``apply_deform_field`` does
+    (the JAX package's ``deform_gaussians``)."""
     params = nodes.mlp if cfg.deform_type in ("mlp", "hash") else nodes
+    names = ROW_INPUTS.get(cfg.deform_type, ())
     with trace.span("d2dgs.field"):
-        trace.count("field.rows", xyz.shape[0])
-        return apply_deform_field(params, cfg, xyz, t, feature=feature,
-                                  motion_mask=motion_mask, step=step)
+        rows = live_rows(gauss.alive)
+        if rows is None:
+            trace.count("field.rows", gauss.xyz.shape[0])
+            return apply_deform_field(
+                params, cfg, gauss.xyz, t, step=step,
+                **{k: getattr(gauss, k) for k in names})
+        trace.count("field.rows", rows.shape[0])
+        # index_select's backward adds onto distinct rows, deterministic
+        # (advanced indexing's sorts); index_copy's is a gather
+        d = apply_deform_field(
+            params, cfg, torch.index_select(gauss.xyz.detach(), 0, rows), t,
+            step=step, **{k: torch.index_select(getattr(gauss, k), 0, rows)
+                          for k in names})
+        n = gauss.xyz.shape[0]
+        return {k: None if v is None else
+                v.new_zeros((n,) + v.shape[1:]).index_copy(0, rows, v)
+                for k, v in d.items()}

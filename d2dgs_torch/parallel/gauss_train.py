@@ -158,8 +158,7 @@ def sharded_train_step(state: TrainState, cams, gts: torch.Tensor,
     if cfg.deform_type == "node" and arap_draws is None:
         arap_draws = R.arap_draws(state.generator, nodes.nodes.shape[0])
 
-    d = deform_gaussians(nodes, cfg.deform_cfg, g.xyz, cam.time,
-                         feature=g.feature, motion_mask=g.motion_mask,
+    d = deform_gaussians(nodes, cfg.deform_cfg, g, cam.time,
                          step=sched.get("step", 10**9))
     w = sched["warm"]
 

@@ -28,7 +28,9 @@ step) or ``d2dgs.view`` (a served view); ``d2dgs.pick``,
 below them ``d2dgs.mlp`` (the deform MLP's encodings, trunk and heads,
 ``models/deform_mlp.py`` ``mlp_forward``: inside ``d2dgs.field``, and
 inside ``d2dgs.loss`` where the node ARAP term queries it).
-The counters: ``field.rows`` (rows the deformation field evaluated),
+The counters: ``field.rows`` (rows the deformation field evaluated:
+the live ones where its caller passes the mask), ``field.row_lists``
+(the live-row lists ``models/deform.py`` ``live_rows`` built),
 ``render.live`` (live surfels rendered), ``host.reads`` (places where
 the host waited on a CUDA device: a value read back, or a copy from
 pageable host memory, which waits for the stream), ``field.gather_rows``

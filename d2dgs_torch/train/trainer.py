@@ -202,9 +202,7 @@ def photometric_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
     normal-consistency and distortion terms.  Before the warm-up ends
     (``sched["warm"]`` 1) the deformation passes no gradient.
     Returns (loss, (RenderOutput, l1))."""
-    d = deform_gaussians(nodes, cfg.deform_cfg, gauss.xyz, cam.time,
-                         feature=gauss.feature,
-                         motion_mask=gauss.motion_mask,
+    d = deform_gaussians(nodes, cfg.deform_cfg, gauss, cam.time,
                          step=sched.get("step", 10**9))
     w = sched["warm"]
 
@@ -240,12 +238,8 @@ def optical_flow_loss(gauss: GaussianParams, nodes: NodeParams, cam: Camera,
     alpha (> 0.9), the RAFT mask, the time proximity ``pair_weight`` and
     the photometric confidence cos(pi/2 |image - gt|)."""
     step = sched.get("step", 10**9)
-    d1 = deform_gaussians(nodes, cfg.deform_cfg, gauss.xyz, cam.time,
-                          feature=gauss.feature,
-                          motion_mask=gauss.motion_mask, step=step)
-    d2 = deform_gaussians(nodes, cfg.deform_cfg, gauss.xyz, cam2.time,
-                          feature=gauss.feature,
-                          motion_mask=gauss.motion_mask, step=step)
+    d1 = deform_gaussians(nodes, cfg.deform_cfg, gauss, cam.time, step=step)
+    d2 = deform_gaussians(nodes, cfg.deform_cfg, gauss, cam2.time, step=step)
     f = render_flow(gauss, cam, cam2, d_xyz1=d1["d_xyz"],
                     d_xyz2=d2["d_xyz"], d_rotation1=d1["d_rotation"],
                     d_scaling1=d1["d_scaling"], cfg=cfg.raster)
@@ -391,9 +385,7 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
         # graph
         g = state.gauss
         with torch.no_grad():
-            d = deform_gaussians(state.nodes, cfg.deform_cfg, g.xyz,
-                                 cam.time, feature=g.feature,
-                                 motion_mask=g.motion_mask,
+            d = deform_gaussians(state.nodes, cfg.deform_cfg, g, cam.time,
                                  step=sched.get("step", 10**9))
         loss = loss + sched["lambda_motion"] * motion_mask_loss(
             g, cam, gt_alpha, bg, cfg, d=d)
@@ -652,9 +644,8 @@ class Trainer:
 
         def render_fn(cam, scaling_modifier):
             g = self.state.gauss
-            d = deform_gaussians(self.state.nodes, self.cfg.deform_cfg,
-                                 g.xyz, cam.time, feature=g.feature,
-                                 motion_mask=g.motion_mask)
+            d = deform_gaussians(self.state.nodes, self.cfg.deform_cfg, g,
+                                 cam.time)
             out = render(cam, g, torch.zeros(3, device=self.device),
                          d_xyz=d["d_xyz"], d_rotation=d["d_rotation"],
                          d_scaling=d["d_scaling"],

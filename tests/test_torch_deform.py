@@ -2,6 +2,7 @@
 timenet, the control-node KNN binding, FPS node init and the node warp of
 d2dgs_torch against d2dgs_tpu, with the JAX weights carried across."""
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,13 @@ HEAD_SCALE = {"warp": 1e3, "scaling": 1e6, "rotation": 1e3,
 
 def T(a):
     return torch.from_numpy(np.array(a))
+
+
+def _gauss(xyz, **rows):
+    """What deform_gaussians reads of the Gaussians: ``xyz``, every slot
+    alive, and the field type's other per-row inputs."""
+    return types.SimpleNamespace(
+        xyz=xyz, alive=torch.ones(xyz.shape[0], dtype=torch.bool), **rows)
 
 
 def close(port, ref, tol=TOL, **kw):
@@ -146,8 +154,9 @@ def test_warp_parity(local_frame, d_rot_as_res):
         assert float(np.abs(np.asarray(jo[k])).max()) > 1e-3, k
         close(to[k], jo[k], tol=dict(rtol=1e-5, atol=atol[k]), err_msg=k)
     # the facade's node type is this warp
-    fo = deform_gaussians(tp, DeformConfig(node=pcfg), T(x), 0.3,
-                          feature=T(feat), motion_mask=T(mm))
+    fo = deform_gaussians(tp, DeformConfig(node=pcfg),
+                          _gauss(T(x), feature=T(feat), motion_mask=T(mm)),
+                          0.3)
     for k in ("d_xyz", "d_rotation", "d_scaling"):
         torch.testing.assert_close(fo[k], to[k], rtol=0, atol=0)
 
@@ -184,11 +193,11 @@ def test_deform_types_not_ported_raise():
     _, _, pcfg, tp, x, feat, mm = _node_setup(True)
     for nodes in (tp, None):          # static reads no parameters
         out = deform_gaussians(nodes, DeformConfig(deform_type="static"),
-                               T(x), 0.5)
+                               _gauss(T(x)), 0.5)
         assert all(float(out[k].abs().max()) == 0.0
                    for k in ("d_xyz", "d_rotation", "d_scaling"))
     out = deform_gaussians(tp, DeformConfig(deform_type="mlp",
-                                            mlp=pcfg.mlp), T(x), 0.5)
+                                            mlp=pcfg.mlp), _gauss(T(x)), 0.5)
     want = tmlp.mlp_forward(tp.mlp, pcfg.mlp, T(x),
                             torch.full((x.shape[0], 1), 0.5))
     for k in ("d_xyz", "d_rotation", "d_scaling"):

@@ -527,7 +527,6 @@ def test_trainer_passes_step(scene):
                           cameras_extent=4.0, seed=0, device="cpu")
     g = tr.state.gauss
     d_early, d_late = (tdeform.deform_gaussians(
-        tr.state.nodes, cfg.deform_cfg, g.xyz, torch.tensor(0.5),
-        feature=g.feature, motion_mask=g.motion_mask, step=s)
+        tr.state.nodes, cfg.deform_cfg, g, torch.tensor(0.5), step=s)
         for s in (0, 10**9))
     assert float((d_early["d_xyz"] - d_late["d_xyz"]).abs().max()) > 0

@@ -31,7 +31,7 @@ from d2dgs_torch.data.cameras import orbit_camera
 from d2dgs_torch.data.synthetic import make_video_dataset as tvideo
 from d2dgs_torch.data.synthetic import write_flow_file
 from d2dgs_torch.io.from_jax import train_state_from_jax_arrays
-from d2dgs_torch.models.deform import deform_gaussians as tdeform
+from d2dgs_torch.models.deform import apply_deform_field as tdeform
 from d2dgs_torch.render.renderer import render_flow
 from d2dgs_torch.train import trainer as ttrainer
 from d2dgs_torch.train.config import TrainConfig

@@ -9,6 +9,7 @@ and the benchmark's ``benchlib`` only:
     python -m pytest tests/test_torch_mlp_field.py -q
 """
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -140,7 +141,8 @@ def test_span_and_counter(tiny_scene):
     holder = type("Slot", (), {"mlp": params})()
     with profile(activities=[ProfilerActivity.CPU]):
         apply_deform_field(params, DEFORM, x, 0.5)
-        deform_gaussians(holder, DEFORM, x, 0.25)
+        deform_gaussians(holder, DEFORM, types.SimpleNamespace(
+            xyz=x, alive=torch.ones(x.shape[0], dtype=torch.bool)), 0.25)
     recs = trace.records()
     assert [r.name for r in recs] == ["d2dgs.mlp", "d2dgs.field",
                                       "d2dgs.mlp"]

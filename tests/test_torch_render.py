@@ -22,7 +22,7 @@ from d2dgs_tpu.train.trainer import init_train_state
 from d2dgs_torch.data.cameras import orbit_camera
 from d2dgs_torch.io.from_jax import from_jax_arrays, load_jax_checkpoint
 from d2dgs_torch.models import gaussians as tgauss
-from d2dgs_torch.models.deform import DeformConfig, deform_gaussians
+from d2dgs_torch.models.deform import DeformConfig, apply_deform_field
 from d2dgs_torch.models.deform_mlp import MLPConfig
 from d2dgs_torch.models.nodes import NodeConfig
 from d2dgs_torch.render.renderer import render
@@ -104,9 +104,9 @@ def _port_node_cfg():
 
 def _port_view(gauss, nodes, screen_probe=None):
     cam = orbit_camera(**CAM, device="cpu")
-    d = deform_gaussians(nodes, DeformConfig(node=_port_node_cfg()),
-                         gauss.xyz, cam.time, feature=gauss.feature,
-                         motion_mask=gauss.motion_mask)
+    d = apply_deform_field(nodes, DeformConfig(node=_port_node_cfg()),
+                           gauss.xyz, cam.time, feature=gauss.feature,
+                           motion_mask=gauss.motion_mask)
     bg = torch.tensor([0.1, 0.2, 0.3])
     with torch.no_grad():
         return d, render(cam, gauss, bg, d_xyz=d["d_xyz"],

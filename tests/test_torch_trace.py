@@ -21,6 +21,7 @@ from d2dgs_torch import trace
 from d2dgs_torch.config import RasterConfig
 from d2dgs_torch.data.synthetic import make_video_dataset
 from d2dgs_torch.eval.render_sets import render_view
+from d2dgs_torch.models import deform
 from d2dgs_torch.train.trainer import (Trainer, gauss_trainable,
                                        mlp_trainable, node_trainable)
 from torch_tiny import TINY
@@ -136,15 +137,18 @@ def test_span_tree_of_a_step_and_a_view():
 
 
 def test_counters_on_a_tiny_scene():
-    """field.rows counts the capacity rows each field call evaluates,
-    render.live the live surfels each render draws."""
+    """field.rows counts the rows each field call evaluates, the live
+    ones (the step and the view pass the mask), render.live the live
+    surfels each render draws, field.row_lists the one live-row list
+    the step built and the view reused."""
     tr = _trainer()
     cap, live = TINY.gaussian_capacity, int(tr.state.gauss.alive.sum())
     assert 0 < live < cap
     _traced(lambda: (tr.step(), _view(tr)))
     c = trace.report()["counters"]
-    assert c["field.rows"] == 2 * cap
+    assert c["field.rows"] == 2 * live
     assert c["render.live"] == 2 * live
+    assert c["field.row_lists"] == 1
     assert c["host.reads"] > 0
 
 
@@ -172,7 +176,7 @@ def test_tracing_changes_no_result():
     assert torch.equal(_view(off).image, _traced(lambda: _view(on)).image)
 
 
-def test_readers_of_a_report():
+def test_readers_of_a_report(monkeypatch):
     """The benchmark's readers: stream time per unit, the live share and
     the reads per unit; None where the units differ from the traced
     segment's, without stream times, or without a trace."""
@@ -206,13 +210,20 @@ def test_readers_of_a_report():
     tr = _trainer()
     _traced(lambda: _view(tr))
     ctx = {"trace": {"units": 1}}
+    # the view evaluates the field at the live rows only
     live = int(tr.state.gauss.alive.sum())
-    assert spans.field_live_share(ctx) == pytest.approx(
-        100.0 * live / TINY.gaussian_capacity)
+    assert 0 < live < TINY.gaussian_capacity
+    assert spans.field_live_share(ctx) == pytest.approx(100.0)
     assert ctx["spans"]["units"] == 1
     trace.reset()
     assert spans.host_reads_per_unit(ctx) == ctx["spans"]["counters"][
         "host.reads"]
+    # a field over every slot: the live ones over the capacity
+    monkeypatch.setattr(deform, "live_rows", lambda alive: None)
+    _traced(lambda: _view(tr))
+    ctx = {"trace": {"units": 1}}
+    assert spans.field_live_share(ctx) == pytest.approx(
+        100.0 * live / TINY.gaussian_capacity)
 
 
 def test_adam_kernel_share_reader():
@@ -238,7 +249,8 @@ def test_adam_kernel_share_reader():
 def test_host_reads_count_every_sync():
     """On the card: under a profiler and torch's sync debug mode, the
     synchronising calls of a step and a view (K1/K2's route) are as many
-    as the host.reads counter says."""
+    as the host.reads counter says, the live-row list's rebuild after a
+    write to the mask included."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     cfg = dataclasses.replace(TINY, raster=RasterConfig(tile_cap=256))
@@ -247,9 +259,11 @@ def test_host_reads_count_every_sync():
     _view(tr)
     torch.cuda.synchronize()
     trace.reset()
+    alive = tr.state.gauss.alive
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         with warnings.catch_warnings(record=True) as got:
             warnings.simplefilter("always")
+            alive.copy_(alive.clone())     # a write: the list is rebuilt
             torch.cuda.set_sync_debug_mode("warn")
             try:
                 tr.step()
@@ -260,4 +274,5 @@ def test_host_reads_count_every_sync():
              if "called a synchronizing CUDA operation" in str(w.message)]
     rep = trace.report()
     assert rep["units"] == 2
+    assert rep["counters"]["field.row_lists"] == 1
     assert len(syncs) == rep["counters"]["host.reads"] > 0, syncs

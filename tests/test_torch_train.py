@@ -545,7 +545,7 @@ def test_motion_mask_loss_matches_jax(jstate, deformed):
     same L1 and the same gradient, which reaches only the motion-mask
     logits (the last feature channel)."""
     from d2dgs_tpu.models.deform import deform_gaussians as jdeform
-    from d2dgs_torch.models.deform import deform_gaussians as tdeform
+    from d2dgs_torch.models.deform import apply_deform_field as tdeform
     alpha = _gt_alpha()
     jcam, tcam = jorbit(**CAM), orbit_camera(**CAM, device="cpu")
     js = jstate

@@ -121,8 +121,7 @@ def test_trainer_serves_a_frame():
     cam = _camera_from_message(msg, "cpu")
     g = tr.state.gauss
     with torch.no_grad():
-        d = deform_gaussians(tr.state.nodes, cfg.deform_cfg, g.xyz, cam.time,
-                             feature=g.feature, motion_mask=g.motion_mask)
+        d = deform_gaussians(tr.state.nodes, cfg.deform_cfg, g, cam.time)
         img = render(cam, g, torch.zeros(3), d_xyz=d["d_xyz"],
                      d_rotation=d["d_rotation"], d_scaling=d["d_scaling"],
                      cfg=cfg.raster).image

@@ -66,9 +66,7 @@ def main() -> int:
             t = (v % 8) / 8.0
             cam = orbit_camera(0.3 + 0.25 * (v // 8), 0.25, 4.0, fov=0.69,
                                H=800, W=800, time=t, device=dev)
-            d = deform_gaussians(nodes, deform_cfg, gauss.xyz, cam.time,
-                                 feature=gauss.feature,
-                                 motion_mask=gauss.motion_mask)
+            d = deform_gaussians(nodes, deform_cfg, gauss, cam.time)
             means, scales, quats, opac, sh = apply_deform(
                 gauss, d["d_xyz"], d["d_rotation"], d["d_scaling"])
             dirs = means - cam.cam_center[None, :]

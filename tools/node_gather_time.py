@@ -6,14 +6,15 @@ time beside its bound, the plain version and aten's indexing backward.
 Run from the repository root:  python3 tools/node_gather_time.py
 (chip_smoke.py imports ``measure`` for its ``kernels`` line.)
 
-The shapes are the dnerf-node configuration's: 200,000 capacity rows,
-each bound to K = 3 of 1,024 nodes, gathering the [1024, 13] pack of
-``cal_nn_weight`` and the [1024, 18] table of ``warp``; the 116,748 rows
-past the 83,252 live ones are dead, bound to nodes 0-2, with a zero
-gradient, as in a training step.  Each time is the mean of ``--reps``
-launches between two CUDA events after a warm-up.  The bound is the
-bytes the call must move (the gradient rows and indices read once, the
-table's gradient written once) over 3.35 TB/s, the H100 SXM's HBM.
+The shapes are those a dnerf-node training step gives it: the field runs
+on the live surfels only (``models/deform.py`` ``deform_gaussians``), so
+the 83,252 live rows, each bound to K = 3 of 1,024 nodes drawn at random
+and each with a gradient, gather the [1024, 13] pack of
+``cal_nn_weight`` and the [1024, 18] table of ``warp``.  Each time is
+the mean of ``--reps`` launches between two CUDA events after a
+warm-up.  The bound is the bytes the call must move (the gradient rows
+and indices read once, the table's gradient written once) over
+3.35 TB/s, the H100 SXM's HBM.
 Prints one JSON line per table width, then the compiler's report of the
 build and, last, the card's name and power limit.
 """
@@ -32,7 +33,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "benchmark")]
 # HBM bandwidth (bytes/s), as the benchmark's rooflines take it
 from benchlib.counts import PEAK_BYTES_S  # noqa: E402
 
-N, K, M, LIVE = 200_000, 3, 1024, 83_252
+N, K, M = 83_252, 3, 1024
 
 
 def _ms(fn, reps: int) -> float:
@@ -55,18 +56,14 @@ def _rel(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def measure(dev: torch.device, reps: int = 50) -> list[dict]:
-    """One dict per table width (13, 18) at node-train's shapes."""
+    """One dict per table width (13, 18) at node-train's live rows."""
     from d2dgs_torch.ops.cuda.node_gather import (bwd_plan, gather_bwd,
                                                   scatter_rows_plain)
     gen = torch.Generator().manual_seed(0)
     out = []
     for c in (13, 18):
-        idx = torch.randint(0, M, (N, K), generator=gen)
-        idx[LIVE:] = torch.arange(K)
-        idx = idx.to(dev)
-        g = torch.randn((N, K, c), generator=gen)
-        g[LIVE:] = 0.0
-        g = g.to(dev)
+        idx = torch.randint(0, M, (N, K), generator=gen).to(dev)
+        g = torch.randn((N, K, c), generator=gen).to(dev)
         with torch.cuda.device(dev):
             plan = bwd_plan(N * K, M, c)
         grad = gather_bwd(g, idx, M)
