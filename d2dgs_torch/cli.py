@@ -22,9 +22,10 @@ two mesh renders' times, and for ``edit`` each frame's ARAP solve and
 frame time with the solved node positions) for callers that time the CLI.
 
 ``train`` takes every deform type (``--deform_type node|mlp|hash|
-static``); on a scene with RAFT flow files (``raft_neighbouring/``) it
-adds the optical-flow loss, as the JAX CLI does.  ``edit`` drags control
-nodes of a ``node`` model.  ``train --mesh_shape DxG`` runs the main
+hexplane|static``); on a scene with RAFT flow files
+(``raft_neighbouring/``) it adds the optical-flow loss, as the JAX CLI
+does.  ``edit`` drags control nodes of a ``node`` model.  ``train
+--mesh_shape DxG`` runs the main
 stage on a (data x gauss) rank grid (d2dgs_torch/parallel/): under
 ``torchrun --nproc_per_node D*G`` every rank runs the command (NCCL on
 ``cuda``, each rank on its ``LOCAL_RANK``'s card; gloo on ``cpu``), and
@@ -79,9 +80,9 @@ def config_from_args(args: argparse.Namespace):
                 for f in dataclasses.fields(TrainConfig)
                 if hasattr(args, f.name)}
     cfg = TrainConfig(**train_kw, raster=RasterConfig(**raster_kw))
-    if cfg.deform_type not in ("node", "mlp", "hash", "static"):
+    if cfg.deform_type not in ("node", "mlp", "hash", "hexplane", "static"):
         raise SystemExit(f"--deform_type must be one of node|mlp|hash|"
-                         f"static, got {cfg.deform_type!r}")
+                         f"hexplane|static, got {cfg.deform_type!r}")
     return cfg
 
 

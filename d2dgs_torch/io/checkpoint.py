@@ -59,7 +59,9 @@ def tensor_leaves(state: TrainState) -> dict:
     stats(".gauss_stats", state.gauss_stats)
     for f in NODE_FIELDS:
         out[f".nodes.{f}"] = getattr(state.nodes, f)
-    for name, t in state.nodes.mlp.named_parameters():
+    # the field's parameters and buffers (the hexplane field's aabb)
+    for name, t in [*state.nodes.mlp.named_parameters(),
+                    *state.nodes.mlp.named_buffers()]:
         out[f".nodes.mlp{_name_key(name)}"] = t
     out[".nodes.alive"] = state.nodes.alive
     adam(".node_opt", state.node_opt)

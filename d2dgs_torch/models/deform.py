@@ -6,6 +6,8 @@ reference's DeformModel, scene/deform_model.py:10-72), dispatching on
 * "mlp"    — the deform MLP queried directly at each Gaussian
              (DeformNetwork, utils/time_utils.py:208-459);
 * "hash"   — the multi-resolution hash-grid field (models/hash_deform.py);
+* "hexplane" — 4D Gaussian Splatting's HexPlane field
+             (models/hexplane_deform.py), no JAX counterpart;
 * "static" — no deformation (StaticNetwork, time_utils.py:462-470).
 """
 from __future__ import annotations
@@ -20,23 +22,27 @@ from .. import trace
 from ..utils.general import resolve_device
 from .deform_mlp import MLPConfig, init_mlp, mlp_forward
 from .hash_deform import HashConfig, hash_deform_forward, init_hash_deform
+from .hexplane_deform import (HexPlaneConfig, hexplane_forward,
+                              init_hexplane_deform, plane_regulariser)
 from .nodes import (NodeConfig, NodeParams, init_node_params,
                     init_nodes_from_pcl, warp)
 
 
 @dataclasses.dataclass(frozen=True)
 class DeformConfig:
-    deform_type: str = "node"          # node | mlp | hash | static
+    deform_type: str = "node"    # node | mlp | hash | hexplane | static
     node: NodeConfig = NodeConfig()
     mlp: MLPConfig = MLPConfig()
     hash: HashConfig = HashConfig()
+    hexplane: HexPlaneConfig = HexPlaneConfig()
 
 
 def init_deform(cfg: DeformConfig, generator: torch.Generator | None = None,
                 device="cuda", init_pcl=None):
     """The chosen field's parameters, drawn on the CPU from ``generator``:
     a NodeParams for "node" (its nodes FPS-sampled from ``init_pcl`` when
-    given), else an ``nn.ModuleDict`` (empty for "static")."""
+    given), else an ``nn.ModuleDict`` (empty for "static"; for
+    "hexplane" with its aabb set from ``init_pcl`` when given)."""
     dev = resolve_device(device)
     if cfg.deform_type == "node":
         params = init_node_params(cfg.node, generator, device=dev)
@@ -50,6 +56,8 @@ def init_deform(cfg: DeformConfig, generator: torch.Generator | None = None,
         return init_mlp(cfg.mlp, generator, dev)
     if cfg.deform_type == "hash":
         return init_hash_deform(cfg.hash, generator, dev)
+    if cfg.deform_type == "hexplane":
+        return init_hexplane_deform(cfg.hexplane, generator, dev, init_pcl)
     if cfg.deform_type == "static":
         return nn.ModuleDict()
     raise ValueError(f"unknown deform_type {cfg.deform_type!r}")
@@ -58,7 +66,19 @@ def init_deform(cfg: DeformConfig, generator: torch.Generator | None = None,
 # the per-row inputs, beside xyz, that apply_deform_field reads for a type
 # (the GaussianParams attributes deform_gaussians gathers)
 ROW_INPUTS = {"node": ("feature", "motion_mask"), "mlp": (), "hash": (),
-              "static": ()}
+              "hexplane": (), "static": ()}
+
+
+def add_field_regulariser(loss, nodes, cfg: DeformConfig, weight=1.0):
+    """``loss`` plus ``weight`` x the field's own term over its parameters
+    in ``nodes.mlp``: the hexplane planes' regulariser (4DGS train.py,
+    ``compute_regulation``), under ``d2dgs.loss``.  The other types have
+    none (the node graph's ARAP term is the trainer's, gated by its
+    schedule) and get ``loss`` back as it is."""
+    if cfg.deform_type != "hexplane":
+        return loss
+    with trace.span("d2dgs.loss"):
+        return loss + weight * plane_regulariser(nodes.mlp, cfg.hexplane)
 
 
 def apply_deform_field(params, cfg: DeformConfig, xyz: torch.Tensor, t,
@@ -82,6 +102,8 @@ def apply_deform_field(params, cfg: DeformConfig, xyz: torch.Tensor, t,
     elif cfg.deform_type == "hash":
         d = hash_deform_forward(params, cfg.hash, xyz.detach(), t,
                                 step=step)
+    elif cfg.deform_type == "hexplane":
+        d = hexplane_forward(params, cfg.hexplane, xyz.detach(), t)
     elif cfg.deform_type == "static":
         z = lambda c: torch.zeros((n, c), dtype=torch.float32,
                                   device=xyz.device)
@@ -122,16 +144,17 @@ def deform_gaussians(nodes: NodeParams, cfg: DeformConfig, gauss, t,
                      step=10**9) -> dict:
     """The field at the Gaussians ``gauss`` (a GaussianParams: ``xyz``,
     ``alive`` and the type's ``ROW_INPUTS``) at time ``t``, over the
-    TrainState's one node slot: for the mlp and hash types, ``nodes.mlp``
-    holds the field's parameters (DeformModel.step); "static" reads no
-    parameters, so ``nodes`` may be None.
+    TrainState's one node slot: for the mlp, hash and hexplane types,
+    ``nodes.mlp`` holds the field's parameters (DeformModel.step);
+    "static" reads no parameters, so ``nodes`` may be None.
 
     The field runs on the live rows only (``live_rows``): its per-row
     inputs are gathered and its outputs scattered into [C, k] zeros, so a
     dead slot's deformation is 0 (every caller masks dead slots).  With
     no slot dead, every row is evaluated as ``apply_deform_field`` does
     (the JAX package's ``deform_gaussians``)."""
-    params = nodes.mlp if cfg.deform_type in ("mlp", "hash") else nodes
+    params = (nodes.mlp if cfg.deform_type in ("mlp", "hash", "hexplane")
+              else nodes)
     names = ROW_INPUTS.get(cfg.deform_type, ())
     with trace.span("d2dgs.field"):
         rows = live_rows(gauss.alive)

@@ -18,6 +18,7 @@ import torch.distributed as dist
 
 from ..models import densify as D
 from ..models import regularizers as R
+from ..models.deform import add_field_regulariser
 from ..ops.ssim import psnr
 from ..train.config import TrainConfig
 from ..train.optim import adam_update
@@ -51,10 +52,10 @@ def add_stats_batched(stats: D.DensifyStats, screen_grad: torch.Tensor,
 def _batch_grads(state: TrainState, cams, gts, cfg: TrainConfig,
                  sched: dict, batch: int, arap_weight: float,
                  arap_draws: R.ArapDraws):
-    """The gradients of sum_b L_b / batch + arap_weight * ARAP over the
-    views ``cams`` (a part of the batch or all of it).  Returns (the
-    three groups, their gradients in order, the probe gradient [b, C, 2],
-    the render outputs, the L1s)."""
+    """The gradients of sum_b L_b / batch + arap_weight * (ARAP, or the
+    hexplane planes' regulariser) over the views ``cams`` (a part of the
+    batch or all of it).  Returns (the three groups, their gradients in
+    order, the probe gradient [b, C, 2], the render outputs, the L1s)."""
     dev = state.gauss.xyz.device
     bg = (1.0 if cfg.white_background else 0.0) * torch.ones(3, device=dev)
     groups = [gauss_trainable(state.gauss), mlp_trainable(state.nodes),
@@ -74,6 +75,8 @@ def _batch_grads(state: TrainState, cams, gts, cfg: TrainConfig,
         loss = loss + arap_weight * (1.0 - sched["warm"]) * \
             sched["lambda_arap"] * R.arap_loss(state.nodes, cfg.node_cfg,
                                                arap_draws)
+    loss = add_field_regulariser(loss, state.nodes, cfg.deform_cfg,
+                                 arap_weight)
     inputs = [p for g in groups for p in g.values()]
     grads = torch.autograd.grad(loss, inputs + [probe], allow_unused=True)
     flat = [torch.zeros_like(p) if gr is None else gr

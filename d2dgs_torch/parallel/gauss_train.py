@@ -35,7 +35,7 @@ import torch.distributed as dist
 
 from ..models import densify as D
 from ..models import regularizers as R
-from ..models.deform import deform_gaussians
+from ..models.deform import add_field_regulariser, deform_gaussians
 from ..models.gaussians import GaussianParams, apply_deform
 from ..ops.projection import tile_grid
 from ..ops.ssim import l1, psnr, ssim
@@ -189,6 +189,7 @@ def sharded_train_step(state: TrainState, cams, gts: torch.Tensor,
         # the node-graph term, the same on every rank: 1 / n_gauss each
         loss = loss + (1.0 - w) * sched["lambda_arap"] * R.arap_loss(
             nodes, cfg.node_cfg, arap_draws) / n_gauss
+    loss = add_field_regulariser(loss, nodes, cfg.deform_cfg, 1.0 / n_gauss)
     if motion_loss:
         # the motion-mask term on detached geometry (train_gui.py:363-370):
         # colours [mask, 0, 1 - mask]

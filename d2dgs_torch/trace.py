@@ -27,7 +27,10 @@ step) or ``d2dgs.view`` (a served view); ``d2dgs.pick``,
 ``d2dgs.loss``, ``d2dgs.backward``, ``d2dgs.adam``, ``d2dgs.maintain``;
 below them ``d2dgs.mlp`` (the deform MLP's encodings, trunk and heads,
 ``models/deform_mlp.py`` ``mlp_forward``: inside ``d2dgs.field``, and
-inside ``d2dgs.loss`` where the node ARAP term queries it).
+inside ``d2dgs.loss`` where the node ARAP term queries it) and
+``d2dgs.hexplane`` (the HexPlane field's plane sampling, products and
+MLP, ``models/hexplane_deform.py`` ``hexplane_forward``: inside
+``d2dgs.field``).
 The counters: ``field.rows`` (rows the deformation field evaluated:
 the live ones where its caller passes the mask), ``field.row_lists``
 (the live-row lists ``models/deform.py`` ``live_rows`` built),
@@ -38,9 +41,10 @@ and ``field.scatter_rows`` (rows the node warp's K-neighbour gathers
 gathered, and those whose gradient their backward accumulated, not all
 zero; ``ops/cuda/node_gather.py``), ``field.mlp_ops`` (the deform MLP
 forward's float operations, 2 * rows * the sum of fan_in * fan_out over
-its products, counted from the shapes), ``adam.leaves`` and
-``adam.kernel_leaves`` (the leaves Adam updated, and those its kernel
-updated; ``train/optim.py``).
+its products, counted from the shapes), ``field.plane_samples`` (the
+HexPlane field's plane samples, rows x 12, from the shapes),
+``adam.leaves`` and ``adam.kernel_leaves`` (the leaves Adam updated,
+and those its kernel updated; ``train/optim.py``).
 """
 from __future__ import annotations
 

@@ -18,7 +18,8 @@ from ..models.nodes import NodeConfig
 class TrainConfig:
     # model (ModelParams, arguments/__init__.py:50-98)
     sh_degree: int = 3
-    # node (ControlNodeWarp, the D-2DGS default) | mlp | hash | static
+    # node (ControlNodeWarp, the D-2DGS default) | mlp | hash | hexplane
+    # | static
     deform_type: str = "node"
     progressive_band_time: bool = False
     hyper_dim: int = 8

@@ -29,7 +29,8 @@ from .. import trace
 from ..data.cameras import Camera
 from ..models import densify as D
 from ..models import regularizers as R
-from ..models.deform import deform_gaussians, init_deform
+from ..models.deform import (add_field_regulariser, deform_gaussians,
+                             init_deform)
 from ..models.deform_mlp import mlp_forward
 from ..models.gaussians import GaussianParams, create_from_pcd
 from ..models.nodes import (NodeParams, densify_nodes, init_node_params,
@@ -131,9 +132,10 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
     (GUI.__init__, train_gui.py:147-170).  Random draws (the MLP weights,
     the FPS start of the nodes, the later steps' draws) come from
     ``generator`` (default: seed 0).  The nodes are built from the point
-    cloud for every deform type; for "mlp", "hash" and "static" the
-    field's parameters then take the place of ``nodes.mlp``
-    (models/deform.py ``deform_gaussians``), drawn after the nodes'."""
+    cloud for every deform type; for "mlp", "hash", "hexplane" and
+    "static" the field's parameters then take the place of ``nodes.mlp``
+    (models/deform.py ``deform_gaussians``), drawn after the nodes' (the
+    hexplane field's aabb is the point cloud's)."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(0) if generator is None \
         else generator
@@ -145,7 +147,8 @@ def init_train_state(cfg: TrainConfig, init_points: np.ndarray,
                         torch.as_tensor(np.asarray(init_points, np.float32)),
                         generator=gen)
     if cfg.deform_type != "node":
-        nodes.mlp = init_deform(cfg.deform_cfg, gen, dev)
+        nodes.mlp = init_deform(cfg.deform_cfg, gen, dev,
+                                init_pcl=init_points)
     # stage-1 isotropic Gaussians on the node positions (init_gaussians,
     # time_utils.py:1258-1266: SH degree 0, colours 0.5)
     node_xyz = nodes.nodes[:, :3].detach().cpu().numpy()
@@ -379,6 +382,7 @@ def main_stage_step(state: TrainState, cam: Camera, gt: torch.Tensor,
                                           state.nodes.nodes.shape[0])
             loss = loss + (1.0 - sched["warm"]) * sched["lambda_arap"] * \
                 R.arap_loss(state.nodes, cfg.node_cfg, arap_draws)
+    loss = add_field_regulariser(loss, state.nodes, cfg.deform_cfg)
     if motion_loss:
         # motion-mask loss (train_gui.py:363-370), landmark-scheduled; its
         # render takes the deformation detached, so it is built without a

@@ -122,7 +122,7 @@ def test_cpu_takes_the_plain_version():
     assert int(opts[0].count) == 3
 
 
-@pytest.mark.parametrize("deform_type", ["node", "hash", "mlp"])
+@pytest.mark.parametrize("deform_type", ["node", "hash", "mlp", "hexplane"])
 def test_trainer_steps_fit_the_kernel(deform_type, monkeypatch):
     """Every leaf of two tiny main-stage steps' three groups, with its
     moments and gradient, is one the kernel takes (leaf_fits), so on the

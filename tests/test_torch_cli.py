@@ -193,6 +193,55 @@ def test_train_with_flow_files(tmp_path, capsys):
     assert "nan" not in out
 
 
+def test_train_render_hexplane_checkpoint(tmp_path):
+    """``train --deform_type hexplane --device cpu`` for a few main-stage
+    steps, then ``render`` of its checkpoint.  The checkpoint holds the
+    planes and the aabb (a buffer, set from the point cloud): loaded into
+    a template built from another cloud, both come back bitwise, and
+    written again they give the same arrays."""
+    from test_torch_data_io import dnerf_fixture
+
+    from d2dgs_torch.io.checkpoint import load_train_state, save_train_state
+    from d2dgs_torch.train.trainer import init_train_state
+    root = dnerf_fixture(tmp_path / "scene", n_cams=2, n_times=2, H=16,
+                         W=16, n_test=1)
+    model = str(tmp_path / "m")
+    argv = ["-s", root, "-m", model, "--device", "cpu",
+            "--deform_type", "hexplane"] + TINY
+    assert tcli.main(["train"] + argv + [
+        "--iterations", "3", "--log_every", "1", "--test_iterations", "-1",
+        "--save_iterations", "-1"]) == 0
+    ckpt = os.path.join(model, "ckpt.npz")
+    report = {}
+    assert tcli.main(["render"] + argv + ["--ckpt", "ckpt.npz"],
+                     report=report) == 0
+    assert report["view_ms"] > 0
+    cfg = tcli.config_from_args(tcli._base_parser("train", True).parse_args(
+        ["-s", root, "-m", model, "--deform_type", "hexplane"] + TINY))
+    rs = np.random.RandomState(1)
+    template = init_train_state(cfg, rs.uniform(-3, 3, (50, 3)),
+                                rs.uniform(0, 1, (50, 3)), device="cpu")
+    state, it, _ = load_train_state(ckpt, template)
+    assert it == 5                  # four main-stage steps from 1
+    field = state.nodes.mlp
+    with np.load(ckpt) as z:
+        aabb = z["leaf:.nodes.mlp['aabb']"]
+        assert not np.array_equal(aabb, np.stack([np.full(3, 3.0)] * 2))
+        np.testing.assert_array_equal(field.aabb.numpy(), aabb)
+        for name, p in field.named_parameters():
+            key = "leaf:.nodes.mlp" + "".join(
+                f"[{q}]" if q.isdigit() else f"['{q}']"
+                for q in name.split("."))
+            np.testing.assert_array_equal(p.detach().numpy(), z[key],
+                                          err_msg=name)
+        again = str(tmp_path / "again.npz")
+        save_train_state(again, state, it, 0)
+        with np.load(again) as y:
+            for k in ("leaf:.nodes.mlp['aabb']",
+                      "leaf:.nodes.mlp['grids'][1]['time']"):
+                np.testing.assert_array_equal(y[k], z[k], err_msg=k)
+
+
 # ----------------------------------------------------------------------
 # the journey (slow)
 # ----------------------------------------------------------------------

@@ -498,7 +498,7 @@ def scene():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("dt", ["node", "mlp", "hash", "static"])
+@pytest.mark.parametrize("dt", ["node", "mlp", "hash", "hexplane", "static"])
 def test_deform_type_trains(scene, dt):
     cams, imgs, pts, cols = scene
     tr = ttrainer.Trainer(_train_cfg(dt), cams, imgs, pts[:32], cols[:32],
@@ -513,7 +513,7 @@ def test_deform_type_trains(scene, dt):
     assert np.isfinite(losses).all()
     if dt != "static":    # static can't fit a moving scene
         assert losses[-1] < losses[0]
-    if dt in ("mlp", "hash"):
+    if dt in ("mlp", "hash", "hexplane"):
         assert any(float(p.abs().max()) > 0
                    for p in tr.state.nodes.mlp.parameters())
 

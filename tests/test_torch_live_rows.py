@@ -1,12 +1,13 @@
 """The deformation field on the live rows only (``models/deform.py``
 ``deform_gaussians``, its row list ``live_rows``) against the same field
-over every row (``apply_deform_field``), for node, mlp, hash and static,
-on a mask whose dead rows lie between live ones: the live rows' outputs,
-exact zeros on the dead rows, every leaf's gradient, every slot alive
-bitwise the every-row field, the row list built once per write to the
-mask, and one whole ``main_stage_step``.  On the card (marker ``cuda``): the mlp and
-hash fields at the cells' shapes, and no host read once the list is
-built.  This file imports torch and d2dgs_torch only:
+over every row (``apply_deform_field``), for node, mlp, hash, hexplane
+and static, on a mask whose dead rows lie between live ones: the live
+rows' outputs, exact zeros on the dead rows, every leaf's gradient,
+every slot alive bitwise the every-row field, the row list built once
+per write to the mask, and one whole ``main_stage_step``.  On the card
+(marker ``cuda``): the mlp, hash and hexplane fields at the cells'
+shapes, and no host read once the list is built.  This file imports
+torch and d2dgs_torch only:
 
     python -m pytest tests/test_torch_live_rows.py -q --noconftest -o addopts=""
 """
@@ -31,7 +32,7 @@ from d2dgs_torch.train.config import TrainConfig
 # one intra-op thread: the suite's worker processes would contend
 torch.set_num_threads(1)
 
-TYPES = ["node", "mlp", "hash", "static"]
+TYPES = ["node", "mlp", "hash", "hexplane", "static"]
 KEYS = ("d_xyz", "d_rotation", "d_scaling")
 TINY_HASH = dict(n_levels=4, log2_hashmap_size=10, base_resolution=4,
                  start_level=2, update_steps=10, num_layers=1, hidden=32,
@@ -74,7 +75,7 @@ def _field(dt, device="cpu", tiny=True):
         init_nodes_from_pcl(holder, cfg.node,
                             torch.randn((32, 3), generator=gen) * 0.5,
                             generator=gen)
-    elif dt in ("mlp", "hash"):
+    elif dt in ("mlp", "hash", "hexplane"):
         holder.mlp = D.init_deform(cfg, gen, device)
     _raise_heads(holder.mlp, dt)
     return cfg, holder
@@ -100,7 +101,8 @@ def _call(field, xyz, feature, t, alive=None):
     cfg, holder = field
     mm = torch.sigmoid(feature[:, -1:])
     if alive is None:
-        params = holder.mlp if cfg.deform_type in ("mlp", "hash") else holder
+        params = (holder.mlp if cfg.deform_type in ("mlp", "hash", "hexplane")
+                  else holder)
         return D.apply_deform_field(params, cfg, xyz, t, feature=feature,
                                     motion_mask=mm, step=STEP)
     gauss = types.SimpleNamespace(xyz=xyz, feature=feature, motion_mask=mm,
@@ -238,14 +240,15 @@ def test_live_rows_match_every_row(dt, monkeypatch):
 # ------------------------------------------------------------ on the card
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dt", ["mlp", "hash"])
+@pytest.mark.parametrize("dt", ["mlp", "hash", "hexplane"])
 def test_cell_shapes_on_the_card(dt):
     """The cells' field at their shapes (200,000 slots, 83,252 live and
     scattered): the live rows' outputs and every leaf's gradient against
     every row's call, within float32 GEMM rounding (TF32 off); then, with
     the list built, a call makes no host read the field does not count
-    (``host.reads``: the mlp field none, so it runs under sync debug
-    mode "error"; the hash field's two copies from host memory)."""
+    (``host.reads``: the mlp and hexplane fields none, so they run under
+    sync debug mode "error"; the hash field's two copies from host
+    memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -288,7 +291,7 @@ def test_cell_shapes_on_the_card(dt):
     assert c["field.rows"] == n_live
     assert len(syncs) == c.get("host.reads", 0), syncs
     assert not [s for s in syncs if s.endswith(("deform.py", "trace.py"))]
-    if dt == "mlp":
+    if dt in ("mlp", "hexplane"):
         assert not syncs
         torch.cuda.set_sync_debug_mode("error")
         try:

@@ -152,6 +152,25 @@ def test_counters_on_a_tiny_scene():
     assert c["host.reads"] > 0
 
 
+def test_hexplane_span_and_counter_of_a_step_and_a_view():
+    """The hexplane field: one d2dgs.hexplane inside each d2dgs.field, the
+    planes' regulariser a second d2dgs.loss of a step (where the node
+    field's ARAP term is), field.plane_samples 12 a row the field
+    evaluated; the docstring of trace.py names both."""
+    tr = _trainer(cfg=dataclasses.replace(TINY, deform_type="hexplane"))
+    _traced(lambda: (tr.step(), _view(tr)))
+    recs = trace.records()
+    hexes = [r for r in recs if r.name == "d2dgs.hexplane"]
+    assert [recs[r.parent].name for r in hexes] == ["d2dgs.field"] * 2
+    step = [r.name for r in recs if r.parent == 0]
+    assert step[step.index("d2dgs.loss"):step.index("d2dgs.backward")] == \
+        ["d2dgs.loss", "d2dgs.loss"]
+    c = trace.report()["counters"]
+    assert c["field.plane_samples"] == 12 * c["field.rows"] > 0
+    for name in ("d2dgs.hexplane", "field.plane_samples"):
+        assert f"``{name}``" in trace.__doc__, name
+
+
 def test_adam_counters_of_a_step():
     """adam.leaves counts the leaves of a step's three groups,
     adam.kernel_leaves those the Adam kernel updated: none on the CPU."""
